@@ -10,7 +10,7 @@ import torch
 import torch.nn as nn
 
 from mdctgan_tpu_torch.data.dataset import AudioAppDataset
-from mdctgan_tpu_torch.device import resolve_device, set_float32_policy
+from mdctgan_tpu_torch.device import float32_policy, resolve_device
 from mdctgan_tpu_torch.models.generator import build_generator
 from mdctgan_tpu_torch.ops.features import SpectralTransform
 from mdctgan_tpu_torch.ops.resample import degrade_lr, resample
@@ -38,10 +38,8 @@ def create_model(
     """Inference model from an options dict.  Weights come from
     ``state_dict`` (strict load; see ``weights.state_dict_from_jax``) or,
     without one, from the reference initialisation seeded by ``opt["seed"]``.
-    Raises when ``device`` is CUDA and CUDA is absent.  Sets the float32
-    policy of ``device.set_float32_policy``."""
+    Raises when ``device`` is CUDA and CUDA is absent."""
     dev = resolve_device(device)
-    set_float32_policy()
     cfg = spectral_config_from_opt(opt)
     transform = SpectralTransform(cfg, dev)
     generator = build_generator(opt)
@@ -69,7 +67,7 @@ def upsample(
     cfg = model.transform.cfg
     ds = AudioAppDataset(audio, sample_rate, cfg.segment_length, gen_overlap)
     raw = torch.from_numpy(ds.raw_audio)[None].to(model.device)
-    with torch.inference_mode():
+    with torch.inference_mode(), float32_policy():
         if is_lr_input:
             lr = resample(raw, sample_rate, cfg.hr_sampling_rate)
         else:

@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Iterator, Union
 
 import torch
 
@@ -22,15 +23,23 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     return dev
 
 
-def set_float32_policy() -> None:
-    """Run every float32 product in full float32 on the card.
+@contextlib.contextmanager
+def float32_policy(allow_tf32: bool = False) -> Iterator[None]:
+    """Within the block, run float32 products in full float32 on the card
+    (or in TF32 with ``allow_tf32=True``); the caller's settings come back
+    on exit, so the port changes nothing for other code in the process.
 
     PyTorch keeps float32 matmuls in full precision by default but lets
     cuDNN run float32 convolutions in TF32, which keeps about three decimal
     digits.  The port is held against the float32 reference at absolute
     bounds of 5e-4 (generator) and 2e-3 relative (waveform, after a sinh
-    denormalization whose slope reaches ~575x), which TF32 would exceed, so
-    both switches are off.  A faster precision (bf16 autocast) is a later,
-    measured change, not a default."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    denormalization whose slope reaches ~575x), so its entry points run
+    under this policy with TF32 off.  A faster precision (bf16 autocast) is
+    a later, measured change, not a default."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = allow_tf32
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved

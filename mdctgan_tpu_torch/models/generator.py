@@ -153,14 +153,18 @@ class LocalEnhancer(nn.Module):
     def coarse(self) -> GlobalGenerator:
         return self._modules["global"]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The output before its tanh."""
         coarse = self.coarse(avg_pool_3x3_s2(x))
         h = instance_norm_relu(self.local_stem(reflect_pad(x, 3)))
         h = instance_norm_relu(self.local_down(h)) + coarse
         for i in range(self.n_blocks_local):
             h = getattr(self, f"local_res{i}")(h)
         h = instance_norm_relu(self.local_up(h))
-        return torch.tanh(self.local_head(reflect_pad(h, 3)))
+        return self.local_head(reflect_pad(h, 3))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.logits(x))
 
 
 def build_generator(opt: Mapping) -> nn.Module:

@@ -16,14 +16,11 @@ spectral masking.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from mdctgan_tpu_torch.ops import mdct_kernels
-
-_LN10 = math.log(10.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,21 +87,30 @@ class SpectralTransform:
         return {"min": float(self.cfg.src_range[0]), "max": float(self.cfg.src_range[1])}
 
     # -------------------------------------------------------------- #
-    # normalize / denormalize
+    # the affine maps between ``src_range`` and ``norm_range``
+    # -------------------------------------------------------------- #
+    def _norm_affine(self) -> Tuple[float, float]:
+        """(scale, shift) taking ``src_range`` onto ``norm_range``."""
+        (lo, hi), (r0, r1) = self.cfg.src_range, self.cfg.norm_range
+        scale = (r1 - r0) / (hi - lo)
+        return scale, r0 - lo * scale
+
+    def _denorm_affine(self, lo: float, hi: float) -> Tuple[float, float]:
+        """(scale, shift) taking ``norm_range`` back onto [lo, hi]."""
+        r0, r1 = self.cfg.norm_range
+        scale = (hi - lo) / (r1 - r0)
+        return scale, lo - r0 * scale
+
+    # -------------------------------------------------------------- #
+    # normalize / denormalize (K1's epilogue and K2's prologue alone)
     # -------------------------------------------------------------- #
     def normalize(self, spectro: torch.Tensor):
-        cfg = self.cfg
-        log_spectro = torch.asinh(cfg.arcsinh_gain * spectro) / _LN10
-        lo, hi = cfg.src_range
-        out = (log_spectro - lo) / (hi - lo)
-        out = out * (cfg.norm_range[1] - cfg.norm_range[0]) + cfg.norm_range[0]
+        out = mdct_kernels.compress(spectro, self.cfg.arcsinh_gain, *self._norm_affine())
         return out, self.norm_param()
 
     def denormalize(self, log_spectro: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
-        cfg = self.cfg
-        x = (log_spectro - cfg.norm_range[0]) / (cfg.norm_range[1] - cfg.norm_range[0])
-        x = x * (hi - lo) + lo
-        return torch.sinh(x * _LN10) / cfg.arcsinh_gain
+        return mdct_kernels.expand(
+            log_spectro, self.cfg.arcsinh_gain, *self._denorm_affine(lo, hi))
 
     # -------------------------------------------------------------- #
     # waveform <-> normalized spectro image
@@ -112,12 +118,8 @@ class SpectralTransform:
     def to_spectro(self, audio: torch.Tensor):
         """(B, T) waveform -> ((B, 1, F, K) normalized spectro, norm params).
         One K1 launch on a CUDA tensor."""
-        cfg = self.cfg
-        lo, hi = cfg.src_range
-        scale = (cfg.norm_range[1] - cfg.norm_range[0]) / (hi - lo)
-        shift = cfg.norm_range[0] - lo * scale
         log_spectro = mdct_kernels.mdct_spectro(
-            audio, self.spectro_mat, cfg.arcsinh_gain, scale, shift
+            audio, self.spectro_mat, self.cfg.arcsinh_gain, *self._norm_affine()
         )
         return log_spectro[:, None], self.norm_param()
 
@@ -129,12 +131,9 @@ class SpectralTransform:
     ) -> torch.Tensor:
         """(B, 1, F, K) normalized spectro -> (B, (F-1)*hop) waveform,
         denormalized with ``norm_param``.  One K2 launch on a CUDA tensor."""
-        cfg = self.cfg
-        lo, hi = norm_param["min"], norm_param["max"]
-        scale = (hi - lo) / (cfg.norm_range[1] - cfg.norm_range[0])
-        shift = lo - cfg.norm_range[0] * scale
         audio = mdct_kernels.imdct_audio(
-            log_spectro[:, 0], self.synth_mat, cfg.arcsinh_gain, scale, shift
+            log_spectro[:, 0], self.synth_mat, self.cfg.arcsinh_gain,
+            *self._denorm_affine(norm_param["min"], norm_param["max"]),
         )
         if out_length is not None:
             audio = audio[..., :out_length]

@@ -9,8 +9,9 @@ against a cosine matrix with the analysis window folded in.  The matrices are
 built on the host in float64 and cast once.  The inverse is the product with
 ``(4/N) * (w * C)^T`` followed by the overlap-add of adjacent half-frames.
 
-These classes are the eager spec of the transform; the serving chain goes
-through the fused kernels of ``ops/mdct_kernels.py`` instead.
+``mdct``/``imdct`` are the transform itself: the plain versions of the
+serving kernels (``ops/mdct_kernels.py``) call them, and the ``MDCT``/``IMDCT``
+classes hold a matrix and call them.
 """
 
 from __future__ import annotations
@@ -77,18 +78,40 @@ def overlap_add(frames: torch.Tensor, hop_length: int, center: bool = True) -> t
     return out.reshape(*out.shape[:-2], -1)
 
 
+def spectro_matrix(n_fft: int, device="cpu", dtype=torch.float32) -> torch.Tensor:
+    """The (N, N/2) analysis matrix, KBD window folded in (float64 build)."""
+    m = mdct_matrix(n_fft, kbd_window(n_fft), np.float64)
+    return torch.as_tensor(m, dtype=dtype, device=device)
+
+
+def synth_matrix(n_fft: int, device="cpu", dtype=torch.float32) -> torch.Tensor:
+    """The (N/2, N) synthesis matrix ``(4/N) (w C)^T`` (float64 build)."""
+    s = imdct_matrix(n_fft, kbd_window(n_fft), np.float64)
+    return torch.as_tensor(s, dtype=dtype, device=device)
+
+
+def mdct(signal: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """Centre-padded MDCT ``(..., T)`` -> ``(..., F, N/2)``; ``mat`` from
+    ``spectro_matrix``."""
+    n_fft = mat.shape[0]
+    return torch.matmul(frame_signal(signal, n_fft, n_fft // 2, center=True), mat)
+
+
+def imdct(spectrum: torch.Tensor, synth: torch.Tensor) -> torch.Tensor:
+    """Inverse MDCT ``(..., F, N/2)`` -> ``(..., (F-1)*N/2)``, centre-cropped;
+    ``synth`` from ``synth_matrix``."""
+    return overlap_add(torch.matmul(spectrum, synth), synth.shape[0], center=True)
+
+
 class MDCT:
     """Forward MDCT: waveform ``(..., T)`` -> spectrum ``(..., F, n_fft//2)``,
     KBD window, hop = win/2 = n_fft/2, centre-padded."""
 
     def __init__(self, n_fft: int = 512, device="cpu", dtype=torch.float32):
-        self.n_fft = n_fft
-        m = mdct_matrix(n_fft, kbd_window(n_fft), np.float64)
-        self.kernel = torch.as_tensor(m, dtype=dtype, device=device)
+        self.kernel = spectro_matrix(n_fft, device, dtype)
 
     def __call__(self, signal: torch.Tensor) -> torch.Tensor:
-        frames = frame_signal(signal, self.n_fft, self.n_fft // 2, center=True)
-        return torch.matmul(frames, self.kernel)
+        return mdct(signal, self.kernel)
 
 
 class IMDCT:
@@ -96,9 +119,7 @@ class IMDCT:
     ``(..., (F-1)*hop)``, hop = n_fft/2, centre-cropped."""
 
     def __init__(self, n_fft: int = 512, device="cpu", dtype=torch.float32):
-        s = imdct_matrix(n_fft, kbd_window(n_fft), np.float64)
-        self.kernel = torch.as_tensor(s, dtype=dtype, device=device)
+        self.kernel = synth_matrix(n_fft, device, dtype)
 
     def __call__(self, spectrum: torch.Tensor) -> torch.Tensor:
-        frames = torch.matmul(spectrum, self.kernel)
-        return overlap_add(frames, self.kernel.shape[0], center=True)
+        return imdct(spectrum, self.kernel)

@@ -11,9 +11,11 @@ K2 ``imdct_audio``   replaces ``mdctgan_tpu/ops/pallas_mdct.py:imdct_audio_fused
     CUDA: ``csrc/imdct_audio.cu``.
 
 Bound on an H100 SXM at the flagship shape (batch 8, N = 512, F = 128): each
-kernel does 2*8*128*512*256 = 268 MFLOP and moves about 2.6 MB, i.e. ~4.0 us
-at the 67 TFLOP/s float32 FMA rate against ~0.8 us at 3.35 TB/s: both are
-bound by operations.  Their design (``csrc/window_gemm.cuh``) reads the
+kernel must move about 2.6 MB, ~0.8 us at 3.35 TB/s.  The transform needs far
+fewer operations than that: through an N/4-point complex FFT an MDCT frame
+takes ~6.8 kFLOP, ~7 MFLOP per call, ~0.1 us at the 67 TFLOP/s float32 rate.
+So both are bound by bytes.  The dense (N, N/2) product these kernels do
+instead is 2*8*128*512*256 = 268 MFLOP, ~4.0 us at that rate.  Their design (``csrc/window_gemm.cuh``) reads the
 overlapping windows straight from the source, so neither the padded signal,
 the frames nor the synthesis frames are written to device memory.
 
@@ -28,12 +30,11 @@ import ctypes
 import functools
 import math
 
-import numpy as np
 import torch
 
 from mdctgan_tpu_torch.ops._build import load_library
-from mdctgan_tpu_torch.ops.mdct import frame_signal, imdct_matrix, mdct_matrix, overlap_add
-from mdctgan_tpu_torch.ops.window import kbd_window
+# the matrices the wrappers take are built by ``ops/mdct.py``; re-exported
+from mdctgan_tpu_torch.ops.mdct import imdct, mdct, spectro_matrix, synth_matrix  # noqa: F401
 
 _LN10 = math.log(10.0)
 
@@ -58,39 +59,34 @@ def n_frames_of(t: int, hop_length: int) -> int:
     return total // hop_length - 1
 
 
-def spectro_matrix(n_fft: int, device="cpu", dtype=torch.float32) -> torch.Tensor:
-    """K1's (N, N/2) analysis matrix, KBD window folded in (float64 build)."""
-    m = mdct_matrix(n_fft, kbd_window(n_fft), np.float64)
-    return torch.as_tensor(m, dtype=dtype, device=device)
-
-
-def synth_matrix(n_fft: int, device="cpu", dtype=torch.float32) -> torch.Tensor:
-    """K2's (N/2, N) synthesis matrix ``(4/N) (w C)^T`` (float64 build)."""
-    s = imdct_matrix(n_fft, kbd_window(n_fft), np.float64)
-    return torch.as_tensor(s, dtype=dtype, device=device)
-
-
 # --------------------------------------------------------------------------
 # plain versions
 # --------------------------------------------------------------------------
 
-def mdct_spectro_plain(signal, mat, gain=0.0, scale=1.0, shift=0.0):
-    """K1 in plain PyTorch, in the dtype of ``signal`` and ``mat``."""
-    n_fft = mat.shape[0]
-    frames = frame_signal(signal, n_fft, n_fft // 2, center=True)
-    spec = torch.matmul(frames, mat)
+def compress(spec, gain=0.0, scale=1.0, shift=0.0):
+    """K1's epilogue: ``asinh(gain*x)/ln10`` (gain != 0), then ``*scale + shift``."""
     if gain != 0.0:
         spec = torch.asinh(gain * spec) / _LN10
     return spec * scale + shift
 
 
-def imdct_audio_plain(spec, synth, gain=0.0, scale=1.0, shift=0.0):
-    """K2 in plain PyTorch, in the dtype of ``spec`` and ``synth``."""
-    x = spec * scale + shift
+def expand(x, gain=0.0, scale=1.0, shift=0.0):
+    """K2's prologue: ``*scale + shift``, then ``sinh(x*ln10)/gain``
+    (gain != 0); with the inverse affine it undoes ``compress``."""
+    x = x * scale + shift
     if gain != 0.0:
         x = torch.sinh(x * _LN10) / gain
-    frames = torch.matmul(x, synth)
-    return overlap_add(frames, synth.shape[0], center=True)
+    return x
+
+
+def mdct_spectro_plain(signal, mat, gain=0.0, scale=1.0, shift=0.0):
+    """K1 in plain PyTorch, in the dtype of ``signal`` and ``mat``."""
+    return compress(mdct(signal, mat), gain, scale, shift)
+
+
+def imdct_audio_plain(spec, synth, gain=0.0, scale=1.0, shift=0.0):
+    """K2 in plain PyTorch, in the dtype of ``spec`` and ``synth``."""
+    return imdct(expand(spec, gain, scale, shift), synth)
 
 
 # --------------------------------------------------------------------------

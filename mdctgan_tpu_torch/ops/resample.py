@@ -2,8 +2,8 @@
 
 The kernels are built on the host in float64 (torchaudio's
 ``sinc_interp_hann`` design: lowpass_filter_width 6, rolloff 0.99, Hann^2
-window).  On the card the ``conv1d`` runs in full float32 under the port's
-precision policy (``device.set_float32_policy``).
+window).  On the card ``api.upsample`` runs the ``conv1d`` in full float32
+under the port's precision policy (``device.float32_policy``).
 """
 
 from __future__ import annotations

@@ -11,6 +11,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn as nn
 
+from mdctgan_tpu_torch.device import float32_policy
 from mdctgan_tpu_torch.ops.features import SpectralTransform
 
 
@@ -29,6 +30,7 @@ def build_inference_fn(
     cfg = transform.cfg
 
     @torch.inference_mode()
+    @float32_policy()
     def infer(lr_audio: torch.Tensor):
         lr_spec, lr_np = transform.to_spectro(lr_audio)
         sr = generator(transform.g_input(lr_spec))

@@ -23,6 +23,7 @@ from mdctgan_tpu.train.step import build_inference_fn as j_build_inference_fn
 
 from mdctgan_tpu_torch import api as tapi
 from mdctgan_tpu_torch.data.dataset import AudioAppDataset
+from mdctgan_tpu_torch.device import float32_policy
 from mdctgan_tpu_torch.models.generator import LocalEnhancer
 from mdctgan_tpu_torch.ops import resample as tres
 from mdctgan_tpu_torch.ops.features import SpectralConfig, SpectralTransform
@@ -174,3 +175,28 @@ def test_create_model_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tapi.create_model(OPT)
+
+
+@pytest.mark.parametrize("caller_allows_tf32", [True, False])
+def test_float32_policy_is_scoped_to_the_port(rng, caller_allows_tf32):
+    """The port runs its products in full float32 but leaves the caller's
+    TF32 switches as it found them: ``create_model`` and ``upsample``
+    change nothing for other code in the process."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    try:
+        matmul.allow_tf32 = cudnn.allow_tf32 = caller_allows_tf32
+        with float32_policy():
+            assert (matmul.allow_tf32, cudnn.allow_tf32) == (False, False)
+        with float32_policy(allow_tf32=True):
+            assert (matmul.allow_tf32, cudnn.allow_tf32) == (True, True)
+        seen = []
+        model = tapi.create_model(OPT, device="cpu")
+        assert (matmul.allow_tf32, cudnn.allow_tf32) == (caller_allows_tf32,) * 2
+        model.generator.register_forward_hook(
+            lambda *_: seen.append((matmul.allow_tf32, cudnn.allow_tf32)))
+        tapi.upsample(_clip(rng, 4000, 16000), 16000, model, is_lr_input=True)
+        assert seen == [(False, False)]
+        assert (matmul.allow_tf32, cudnn.allow_tf32) == (caller_allows_tf32,) * 2
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved
