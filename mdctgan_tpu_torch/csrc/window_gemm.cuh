@@ -1,13 +1,16 @@
-// Sliding-window matrix product shared by the MDCT (K1) and IMDCT (K2)
-// kernels.
+// Sliding-window matrix product: the dense form of the MDCT (K1) and IMDCT
+// (K2) kernels, for the N that the FFT form (mdct_fft.cuh) does not take,
+// i.e. any even N that is not a power of two in [64, 2048].  For those N it
+// replaces mdctgan_tpu/ops/pallas_mdct.py:80 (mdct_spectro_fused) and
+// pallas_mdct.py:185 (imdct_audio_fused).
 //
 //   out[b, r, n] = epi( sum_{d < depth} pro(src[b, r*row_stride + d - offset]) * W(d, n) )
 //
 // Row r of the left operand is a window of the source that starts
-// row_stride samples after row r-1's.  Both transforms of the serving chain
-// have this form with row_stride = depth / 2:
-//   * K1 (MDCT): a frame is 512 consecutive samples of the centre-padded
-//     signal, hop 256.  The padding is never materialised: a source index
+// row_stride samples after row r-1's.  Both transforms have this form with
+// row_stride = depth / 2:
+//   * K1 (MDCT): a frame is N consecutive samples of the centre-padded
+//     signal, hop N/2.  The padding is never materialised: a source index
 //     outside [0, src_len) reads as zero.
 //   * K2 (IMDCT + overlap-add): output chunk c is frames[c, hop:] +
 //     frames[c+1, :hop], i.e. the row [x[c], x[c+1]] (2K consecutive spectrum
@@ -20,11 +23,13 @@
 // slice of source windows and a BK x BN slice of the matrix in shared memory
 // per step; each thread accumulates a TM x TN register tile.
 //
-// Bound on an H100: at the flagship shape (batch 8, 128 x 512 x 256 per
-// sample) one call is 268 MFLOP against ~2.6 MB of traffic, so it is bound
-// by the float32 FMA rate (~4 us at 67 TFLOP/s), not by memory (~0.8 us).
-// This first form is a simple SIMT tiling; tensor-core (wgmma, 3xTF32) and
-// TMA forms are later work.
+// Bound on an H100 SXM: the function is bound by bytes (about 8 bytes a
+// spectrum value, at 3.35 TB/s; 0.46 us at N = 480, batch 8, T = 24000),
+// but this form does the dense (N, N/2) product, N*N/2 FMAs a frame (2.8 us
+// at that shape at the 67 TFLOP/s float32 rate): far more operations than
+// an FFT needs.  It is kept only for the geometries the FFT form does not
+// cover.  It reads the overlapping windows straight from the source, so no
+// padded signal or frame tensor is written.
 
 #pragma once
 
@@ -38,12 +43,6 @@ constexpr int BK = 16;  // depth per shared-memory stage
 constexpr int TM = 4;   // rows per thread
 constexpr int TN = 4;   // columns per thread
 constexpr int THREADS = (BM / TM) * (BN / TN);  // 128
-
-constexpr float kLn10 = 2.302585092994045684f;
-
-struct Identity {
-  __device__ __forceinline__ float operator()(float x) const { return x; }
-};
 
 // W(d, n) = w[d * width + n]: a row-major (depth, width) matrix.
 struct RowMajorW {

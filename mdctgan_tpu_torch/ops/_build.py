@@ -38,8 +38,9 @@ def _nvcc() -> str:
 
 
 def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    # every source, since one .cu may include another
+    h = hashlib.sha256(f"{name} {' '.join(NVCC_FLAGS)}".encode())
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -90,6 +90,41 @@ def synth_matrix(n_fft: int, device="cpu", dtype=torch.float32) -> torch.Tensor:
     return torch.as_tensor(s, dtype=dtype, device=device)
 
 
+def fft_tables(n_fft: int, device="cpu", dtype=torch.float32) -> torch.Tensor:
+    """The FFT kernels' window and twiddles in one flat tensor (float64
+    build, cast once).  With M = N/2 and Q = N/4, complex values interleaved
+    (re, im), in this order:
+
+    ========  =====  ==========================================
+    window    N      the KBD window ``w[n]``
+    pre       Q      ``exp(-i pi (m + 1/4) / M)``
+    roots     Q/2    ``exp(-2 i pi k / Q)``, the FFT's twiddles
+    post      Q      ``exp(-i pi m / M)``
+    post_inv  Q      ``(2/M) exp(-i pi m / M)``: the inverse's 4/N folded in
+    ========  =====  ==========================================
+
+    The forward (fold, ``pre``, Q-point FFT, ``post``, unpack) equals
+    ``frame @ spectro_matrix(N)``; the inverse (``pre``, FFT, ``post_inv``,
+    unpack, unfold, window) equals ``X @ synth_matrix(N)``."""
+    if n_fft % 8:
+        raise ValueError(f"fft_tables: n_fft must be a multiple of 8, got {n_fft}")
+    m, q = n_fft // 2, n_fft // 4
+    j = np.arange(q, dtype=np.float64)
+    post = np.exp(-1j * np.pi * j / m)
+    parts = [
+        np.asarray(kbd_window(n_fft), dtype=np.float64),
+        np.exp(-1j * np.pi * (j + 0.25) / m),
+        np.exp(-2j * np.pi * j[: q // 2] / q),
+        post,
+        (2.0 / m) * post,
+    ]
+    flat = np.concatenate([
+        p if p.dtype == np.float64 else np.stack([p.real, p.imag], -1).reshape(-1)
+        for p in parts
+    ])
+    return torch.as_tensor(flat, dtype=dtype, device=device)
+
+
 def mdct(signal: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     """Centre-padded MDCT ``(..., T)`` -> ``(..., F, N/2)``; ``mat`` from
     ``spectro_matrix``."""

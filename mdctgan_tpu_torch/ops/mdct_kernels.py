@@ -10,18 +10,28 @@ K2 ``imdct_audio``   replaces ``mdctgan_tpu/ops/pallas_mdct.py:imdct_audio_fused
     centre-cropped overlap-add -> (B, (F-1)*N/2) waveform.
     CUDA: ``csrc/imdct_audio.cu``.
 
-Bound on an H100 SXM at the flagship shape (batch 8, N = 512, F = 128): each
-kernel must move about 2.6 MB, ~0.8 us at 3.35 TB/s.  The transform needs far
-fewer operations than that: through an N/4-point complex FFT an MDCT frame
-takes ~6.8 kFLOP, ~7 MFLOP per call, ~0.1 us at the 67 TFLOP/s float32 rate.
-So both are bound by bytes.  The dense (N, N/2) product these kernels do
-instead is 2*8*128*512*256 = 268 MFLOP, ~4.0 us at that rate.  Their design (``csrc/window_gemm.cuh``) reads the
-overlapping windows straight from the source, so neither the padded signal,
-the frames nor the synthesis frames are written to device memory.
+Each has two CUDA forms, chosen by N alone (``kernel_for``), never by
+failure:
+
+* the FFT form (``csrc/mdct_fft.cuh``) for power-of-two N in [64, 2048]: a
+  DCT-IV through an N/4-point complex FFT, one group of lanes per frame,
+  with the window and twiddles of ``fft_tables``;
+* the dense form (``csrc/window_gemm.cuh``; ``mdct_spectro_dense``,
+  ``imdct_audio_dense``) for every other even N: the (N, N/2) product
+  against ``spectro_matrix``/``synth_matrix``.
+
+Bound on an H100 SXM at the flagship shape (batch 8, N = 512, 128 frames):
+each kernel must move about 2.1 MB (its input, its output and the window),
+0.62 us at 3.35 TB/s.  Through the FFT an MDCT frame takes ~6.8 kFLOP,
+~7 MFLOP a call, ~0.1 us at the 67 TFLOP/s float32 rate, so both are bound
+by bytes.  The dense product is 2*8*128*512*256 = 268 MFLOP, ~4.0 us at
+that rate: it cannot reach the bound and serves only the other N.
 
 A wrapper given a CPU tensor runs the plain PyTorch version; given a CUDA
-tensor it launches the kernel (adding one to ``LAUNCHES``) or raises.  Both
-take hop = win/2 = n_fft/2 only, as the Pallas kernels did.
+tensor it launches a kernel (adding one to its count in ``LAUNCHES``) or
+raises.  Both take hop = win/2 = n_fft/2 only, as the Pallas kernels did.
+The matrix argument gives N and is the plain version's operand; the FFT
+form reads ``fft_tables(N)`` instead, built once per device.
 """
 
 from __future__ import annotations
@@ -33,14 +43,16 @@ import math
 import torch
 
 from mdctgan_tpu_torch.ops._build import load_library
-# the matrices the wrappers take are built by ``ops/mdct.py``; re-exported
-from mdctgan_tpu_torch.ops.mdct import imdct, mdct, spectro_matrix, synth_matrix  # noqa: F401
+# the matrices and tables the kernels read are built by ``ops/mdct.py``
+from mdctgan_tpu_torch.ops.mdct import (  # noqa: F401
+    fft_tables, imdct, mdct, spectro_matrix, synth_matrix)
 
 _LN10 = math.log(10.0)
 
 # Kernel launches since the last ``reset_launch_counts()``; only the wrappers
 # below add to these, and only where they launch.
-LAUNCHES = {"mdct_spectro": 0, "imdct_audio": 0}
+LAUNCHES = {"mdct_spectro": 0, "imdct_audio": 0,
+            "mdct_spectro_dense": 0, "imdct_audio_dense": 0}
 
 
 def reset_launch_counts() -> None:
@@ -51,6 +63,14 @@ def reset_launch_counts() -> None:
 def check_geometry(n_fft: int, hop_length: int, win_length: int) -> None:
     if win_length != n_fft or hop_length * 2 != win_length:
         raise NotImplementedError("fused kernels require hop = win/2 = n_fft/2")
+
+
+def kernel_for(kernel: str, n_fft: int) -> str:
+    """The ``LAUNCHES`` key that ``kernel`` (``"mdct_spectro"`` or
+    ``"imdct_audio"``) launches on a CUDA tensor of this N: its FFT form
+    for a power of two in [64, 2048], its dense form otherwise."""
+    fft = 64 <= n_fft <= 2048 and n_fft & (n_fft - 1) == 0
+    return kernel if fft else f"{kernel}_dense"
 
 
 def n_frames_of(t: int, hop_length: int) -> int:
@@ -93,18 +113,28 @@ def imdct_audio_plain(spec, synth, gain=0.0, scale=1.0, shift=0.0):
 # kernel wrappers
 # --------------------------------------------------------------------------
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the C signatures of csrc/<kernel>.cu, shared by its FFT and dense entries
+_ARGTYPES = {
+    "mdct_spectro": [_P, _P, _P, _I, ctypes.c_longlong, _I, _I, _F, _F, _F, _P],
+    "imdct_audio": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _lib(name: str) -> ctypes.CDLL:
-    lib = load_library(name)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "mdct_spectro":
-        fn = lib.mdct_spectro_launch
-        fn.argtypes = [p, p, p, i, ctypes.c_longlong, i, i, f, f, f, p]
-    else:
-        fn = lib.imdct_audio_launch
-        fn.argtypes = [p, p, p, i, i, i, f, f, f, p]
+def _launcher(name: str):
+    """The C entry ``<name>_launch`` of the library built from
+    ``csrc/<kernel>.cu``; ``name`` may carry a ``_dense`` suffix."""
+    kernel = name.removesuffix("_dense")
+    fn = getattr(load_library(kernel), f"{name}_launch")
+    fn.argtypes = _ARGTYPES[kernel]
     fn.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(n_fft: int, device: torch.device) -> torch.Tensor:
+    return fft_tables(n_fft, device)
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -120,58 +150,78 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             )
 
 
-def _raise_on(name: str, err: int) -> None:
+def _launch(name: str, src: torch.Tensor, operand: torch.Tensor,
+            out: torch.Tensor, *args) -> torch.Tensor:
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _launcher(name)(src.data_ptr(), operand.data_ptr(),
+                              out.data_ptr(), *args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    LAUNCHES[name] += 1
+    return out
 
 
-def mdct_spectro(signal, mat, gain=0.0, scale=1.0, shift=0.0):
-    """K1: (B, T) float32 -> (B, F, N/2); ``mat`` from ``spectro_matrix``."""
-    if signal.device.type == "cpu":
-        return mdct_spectro_plain(signal, mat, gain, scale, shift)
-    _check_cuda("mdct_spectro", signal, mat)
+def _k1(name, signal, mat, gain, scale, shift):
+    _check_cuda(name, signal, mat)
     n_fft = mat.shape[0]
     if signal.dim() != 2 or mat.shape != (n_fft, n_fft // 2) or n_fft % 2:
         raise ValueError(
-            f"mdct_spectro: expected (B, T) and (N, N/2), got "
+            f"{name}: expected (B, T) and (N, N/2), got "
             f"{tuple(signal.shape)} and {tuple(mat.shape)}"
         )
     b, t = signal.shape
     f = n_frames_of(t, n_fft // 2)
     out = torch.empty((b, f, n_fft // 2), device=signal.device, dtype=torch.float32)
-    with torch.cuda.device(signal.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib("mdct_spectro").mdct_spectro_launch(
-            signal.data_ptr(), mat.data_ptr(), out.data_ptr(), b, t, n_fft, f,
-            float(gain), float(scale), float(shift), stream,
-        )
-    _raise_on("mdct_spectro", err)
-    LAUNCHES["mdct_spectro"] += 1
-    return out
+    operand = mat if name.endswith("_dense") else _device_tables(n_fft, signal.device)
+    return _launch(name, signal, operand, out, b, t, n_fft, f,
+                   float(gain), float(scale), float(shift))
 
 
-def imdct_audio(spec, synth, gain=0.0, scale=1.0, shift=0.0):
-    """K2: (B, F, N/2) float32 -> (B, (F-1)*N/2); ``synth`` from
-    ``synth_matrix``."""
-    if spec.device.type == "cpu":
-        return imdct_audio_plain(spec, synth, gain, scale, shift)
-    _check_cuda("imdct_audio", spec, synth)
+def _k2(name, spec, synth, gain, scale, shift):
+    _check_cuda(name, spec, synth)
     k = synth.shape[0]
     if spec.dim() != 3 or spec.shape[-1] != k or synth.shape != (k, 2 * k):
         raise ValueError(
-            f"imdct_audio: expected (B, F, K) and (K, 2K), got "
+            f"{name}: expected (B, F, K) and (K, 2K), got "
             f"{tuple(spec.shape)} and {tuple(synth.shape)}"
         )
     b, f, _ = spec.shape
     if f < 2:
-        raise ValueError(f"imdct_audio: needs at least 2 frames, got {f}")
+        raise ValueError(f"{name}: needs at least 2 frames, got {f}")
     out = torch.empty((b, (f - 1) * k), device=spec.device, dtype=torch.float32)
-    with torch.cuda.device(spec.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib("imdct_audio").imdct_audio_launch(
-            spec.data_ptr(), synth.data_ptr(), out.data_ptr(), b, f, 2 * k,
-            float(gain), float(scale), float(shift), stream,
-        )
-    _raise_on("imdct_audio", err)
-    LAUNCHES["imdct_audio"] += 1
-    return out
+    operand = synth if name.endswith("_dense") else _device_tables(2 * k, spec.device)
+    return _launch(name, spec, operand, out, b, f, 2 * k,
+                   float(gain), float(scale), float(shift))
+
+
+def mdct_spectro(signal, mat, gain=0.0, scale=1.0, shift=0.0):
+    """K1: (B, T) float32 -> (B, F, N/2); ``mat`` from ``spectro_matrix``.
+    On CUDA: the form ``kernel_for`` names."""
+    if signal.device.type == "cpu":
+        return mdct_spectro_plain(signal, mat, gain, scale, shift)
+    return _k1(kernel_for("mdct_spectro", mat.shape[0]), signal, mat,
+               gain, scale, shift)
+
+
+def mdct_spectro_dense(signal, mat, gain=0.0, scale=1.0, shift=0.0):
+    """K1's dense form at any even N (the product with ``mat``)."""
+    if signal.device.type == "cpu":
+        return mdct_spectro_plain(signal, mat, gain, scale, shift)
+    return _k1("mdct_spectro_dense", signal, mat, gain, scale, shift)
+
+
+def imdct_audio(spec, synth, gain=0.0, scale=1.0, shift=0.0):
+    """K2: (B, F, N/2) float32 -> (B, (F-1)*N/2); ``synth`` from
+    ``synth_matrix``.  On CUDA: the form ``kernel_for`` names."""
+    if spec.device.type == "cpu":
+        return imdct_audio_plain(spec, synth, gain, scale, shift)
+    return _k2(kernel_for("imdct_audio", 2 * synth.shape[0]), spec, synth,
+               gain, scale, shift)
+
+
+def imdct_audio_dense(spec, synth, gain=0.0, scale=1.0, shift=0.0):
+    """K2's dense form at any even N (the product with ``synth``)."""
+    if spec.device.type == "cpu":
+        return imdct_audio_plain(spec, synth, gain, scale, shift)
+    return _k2("imdct_audio_dense", spec, synth, gain, scale, shift)

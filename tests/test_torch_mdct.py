@@ -160,3 +160,115 @@ def test_plain_versions_run_in_float64(rng):
     assert y64.dtype == torch.float64
     # asinh(1000 x)/ln10 has slope ~434 at 0: K1's normalized bound of 5e-4
     np.testing.assert_allclose(y32.numpy(), y64.numpy(), atol=5e-4)
+
+
+# --------------------------------------------------------------------------
+# the FFT form of K1/K2, step by step in float64 on the CPU
+# --------------------------------------------------------------------------
+
+def _table_sections(tab, n):
+    """The sections of ``fft_tables(n)`` in the kernels' layout."""
+    q = n // 4
+    window, rest = tab[:n], tab[n:]
+    pairs = torch.complex(rest[0::2], rest[1::2])
+    pre, roots, post, post_inv = torch.split(pairs, [q, q // 2, q, q])
+    return window, pre, roots, post, post_inv
+
+
+def _fft_dif(z, roots):
+    """The kernels' radix-2 decimation in frequency: natural-order input;
+    stage ``len`` maps the pair (p, p + len/2) of each block to (a + b,
+    (a - b) roots[(p mod len/2) << shift]); the output lies at bit-reversed
+    positions, returned here in natural order."""
+    q = z.shape[-1]
+    bits = q.bit_length() - 1
+    x = z.clone()
+    p = torch.arange(q)
+    length, shift = q, 0
+    while length >= 2:
+        half = length // 2
+        top = p[(p % length) < half]
+        a, b = x[..., top], x[..., top + half]
+        x[..., top] = a + b
+        x[..., top + half] = (a - b) * roots[(top % half) << shift]
+        length, shift = half, shift + 1
+    rev = torch.tensor([int(format(m, f"0{bits}b")[::-1], 2) for m in range(q)])
+    return x[..., rev]
+
+
+def _dct4(v_at, m_pts, pre, roots, post):
+    """pre-twiddle of (v[2m], v[M-1-2m]), FFT, post-twiddle, unpack."""
+    m = torch.arange(m_pts // 2)
+    z = torch.complex(v_at(2 * m), v_at(m_pts - 1 - 2 * m)) * pre
+    w = _fft_dif(z, roots) * post
+    out = torch.empty(*w.shape[:-1], m_pts, dtype=w.real.dtype)
+    out[..., 2 * m], out[..., m_pts - 1 - 2 * m] = w.real, -w.imag
+    return out
+
+
+@pytest.mark.parametrize("n_fft", [64, 128, 512, 2048])
+def test_fft_form_reproduces_dense_transform(rng, n_fft):
+    m_pts, q = n_fft // 2, n_fft // 4
+    tab = tmdct.fft_tables(n_fft, dtype=torch.float64)
+    assert tab.numel() == 11 * n_fft // 4
+    window, pre, roots, post, post_inv = _table_sections(tab, n_fft)
+    np.testing.assert_array_equal(window.numpy(), twindow.kbd_window(n_fft))
+
+    # forward: window, fold, DCT-IV, as K1 indexes them
+    sig = torch.from_numpy(rng.standard_normal((2, 4 * n_fft + 40)))
+    frames = tmdct.frame_signal(sig, n_fft, m_pts) * window
+    x = lambda i: frames[..., i]  # noqa: E731
+
+    def fold(j):
+        return torch.where(j < q, -x((3 * q - 1 - j) % n_fft) - x((3 * q + j) % n_fft),
+                           x((j - q) % n_fft) - x((3 * q - 1 - j) % n_fft))
+
+    got = _dct4(fold, m_pts, pre, roots, post)
+    ref = tmdct.mdct(sig, tmdct.spectro_matrix(n_fft, dtype=torch.float64))
+    assert got.shape == ref.shape
+    assert float((got - ref).abs().max()) <= 1e-9 * float(ref.abs().max())
+
+    # inverse: DCT-IV with 4/N folded in, unfold, window, overlap-add, as
+    # K2's output loop reads u
+    spec = torch.from_numpy(rng.standard_normal((2, 24, m_pts)))
+    u = _dct4(lambda j: spec[..., j], m_pts, pre, roots, post_inv)
+    n = torch.arange(m_pts)
+    u0, u1 = u[..., :-1, :], u[..., 1:, :]
+    h1 = torch.where(n < q, -u0[..., (q - 1 - n) % m_pts], -u0[..., (n - q) % m_pts])
+    h0 = torch.where(n < q, u1[..., (q + n) % m_pts], -u1[..., (3 * q - 1 - n) % m_pts])
+    got_audio = (h1 * window[m_pts:] + h0 * window[:m_pts]).reshape(2, -1)
+    ref_audio = tmdct.imdct(spec, tmdct.synth_matrix(n_fft, dtype=torch.float64))
+    assert got_audio.shape == ref_audio.shape
+    assert (float((got_audio - ref_audio).abs().max())
+            <= 1e-9 * float(ref_audio.abs().max()))
+
+
+def test_kernel_choice_by_n_fft():
+    powers = {64, 128, 256, 512, 1024, 2048}
+    for n_fft in range(8, 4104, 8):
+        for kernel in ("mdct_spectro", "imdct_audio"):
+            name = K.kernel_for(kernel, n_fft)
+            assert name == (kernel if n_fft in powers else f"{kernel}_dense")
+            assert name in K.LAUNCHES
+    assert K.kernel_for("mdct_spectro", 480) == "mdct_spectro_dense"
+    assert K.kernel_for("imdct_audio", 4096) == "imdct_audio_dense"
+    assert K.kernel_for("imdct_audio", 512) == "imdct_audio"
+
+
+def test_kernel_asinh_sinh_formulas_in_float32():
+    """K1's asinh as ``sign(u) log(|u| + sqrt(u^2 + 1))`` and K2's sinh as
+    ``(e - 1/e)/2`` with one exp (``AsinhAffine`` in csrc/mdct_spectro.cu,
+    ``AffineSinh`` in csrc/imdct_audio.cu), in float32 against float64 over
+    the range the kernels see (gain 1000; K2's input (5y)*ln10, |y| <= 1)."""
+    y = np.concatenate([np.logspace(-12, 3, 20001), -np.logspace(-12, 3, 2001)])
+    y = y.astype(np.float32)
+    a = np.abs(np.float32(1000) * y)
+    got = np.copysign(np.log(a + np.sqrt(a * a + np.float32(1))), y)
+    assert got.dtype == np.float32
+    assert np.abs(got - np.arcsinh(1000 * y.astype(np.float64))).max() <= 1e-6
+    t = np.linspace(-11.6, 11.6, 20001).astype(np.float32)
+    e = np.exp(t)
+    got = (e - np.float32(1) / e) * np.float32(0.5 / 1000)
+    assert got.dtype == np.float32
+    ref = np.sinh(t.astype(np.float64)) / 1000
+    assert (np.abs(got - ref) <= 5e-7 * np.abs(ref) + 5e-10).all()
