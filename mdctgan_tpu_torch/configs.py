@@ -5,7 +5,11 @@
 (a 128 x 256 spectrum), arcsinh gain 1000, abs_norm [-5, 5] -> [-1, 1],
 ``netG local`` ngf 56 with 3 global downsamples, 4 global resblocks and 3
 attention blocks (6 heads x 128), 3 local resblocks, resconv down,
-interpolate up, fit_residual.
+interpolate up, fit_residual; the multiscale discriminator of ndf 64 with
+3 layers at 3 scales; and the optimizer of ``train.sh``: Adam at lr 1.5e-4,
+beta1 0.5, 60 epochs constant and 60 decaying (``train.sh`` trains at
+batch 20).  ``train.sh`` also sets ``--fp16``, which the port does not
+train yet (bf16 autocast); without it the flagship trains in float32.
 """
 
 from __future__ import annotations
@@ -26,4 +30,6 @@ def flagship_opt() -> Dict:
         proj_factor_g=4, heads_g=6, dim_head_g=128,
         n_local_enhancers=1, n_blocks_local=3, n_blocks_attn_l=0,
         downsample_type="resconv", upsample_type="interpolate",
+        ndf=64, n_layers_D=3, num_D=3,
+        lr=1.5e-4, beta1=0.5, niter=60, niter_decay=60,
     )

@@ -1,9 +1,10 @@
-"""Bottleneck-transformer attention stack (NCHW), inference form.
+"""Bottleneck-transformer attention stack (NCHW).
 
 The port of ``mdctgan_tpu/models/attention.py`` (itself a re-implementation
 of ``bottleneck_transformer_pytorch==0.1.4`` with ``downsample=False`` and
-``rel_pos_emb=False``).  BatchNorm runs on its running statistics; the
-train-mode masked statistics belong to the training port.
+``rel_pos_emb=False``).  BatchNorm follows ``module.train()``/``.eval()``:
+batch statistics, optionally restricted to the real rows of a padded batch
+by ``mask``, in train mode; running statistics in eval mode.
 
 Layout, as in the reference: the qkv channel axis splits as
 ``(3, heads, dim_head)`` with the 3 outermost, tokens are the row-major
@@ -13,7 +14,7 @@ flattening of (H, W), and the attention output returns to channels as
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -57,21 +58,48 @@ class Attention2D(nn.Module):
 
 
 class _BN2d(nn.Module):
-    """BatchNorm2d on running statistics (eps 1e-5), with exactly the
-    tensors of the Flax ``BatchNorm`` tree: scale/bias as ``weight``/``bias``
-    and mean/var as the ``running_mean``/``running_var`` buffers."""
+    """BatchNorm2d (momentum 0.1, eps 1e-5) with exactly the tensors of the
+    Flax ``BatchNorm`` tree: scale/bias as ``weight``/``bias`` and mean/var
+    as the ``running_mean``/``running_var`` buffers.
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    In train mode it normalizes every row with the biased two-pass batch
+    variance E[(x - mean)^2] (never E[x^2] - mean^2, which cancels in f32).
+    A 0/1 ``mask`` of shape (B,) restricts the statistics to the rows where
+    it is 1, so a padded tail batch normalizes as the smaller batch would.
+    The running variance tracks the Bessel-corrected n/(n-1) estimate, with
+    n = sum(mask)*H*W, as ``torch.nn.BatchNorm2d`` does.  Stock
+    ``BatchNorm2d`` cannot mask, hence this module."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x - self.running_mean[:, None, None]) * mul[:, None, None]
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            hw = x.shape[2] * x.shape[3]
+            if mask is None:
+                n = float(x.shape[0] * hw)
+                bessel = n / max(n - 1.0, 1.0)
+                mean = x.mean(dim=(0, 2, 3))
+                var = (x - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+            else:
+                m = mask.to(x.dtype).reshape(-1, 1, 1, 1)
+                n = m.sum() * hw
+                bessel = n / torch.clamp(n - 1.0, min=1.0)
+                mean = (x * m).sum(dim=(0, 2, 3)) / n
+                var = ((x - mean[:, None, None]).square() * m).sum(dim=(0, 2, 3)) / n
+            with torch.no_grad():
+                mom = self.momentum
+                self.running_mean.copy_((1.0 - mom) * self.running_mean + mom * mean)
+                self.running_var.copy_((1.0 - mom) * self.running_var + mom * (bessel * var))
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[:, None, None]) * mul[:, None, None]
                 + self.bias[:, None, None])
 
 
@@ -82,8 +110,8 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.bn = _BN2d(channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(x)
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.bn(x, mask)
 
 
 class BottleBlock(nn.Module):
@@ -106,13 +134,13 @@ class BottleBlock(nn.Module):
         self.proj_out = nn.Conv2d(inner, dim_out, 1, bias=False)
         self.bn3 = BatchNorm(dim_out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         shortcut = x
         if self.has_shortcut:
-            shortcut = torch.relu(self.shortcut_bn(self.shortcut_conv(x)))
-        h = torch.relu(self.bn1(self.proj_in(x)))
-        h = torch.relu(self.bn2(self.attn(h)))
-        h = self.bn3(self.proj_out(h))
+            shortcut = torch.relu(self.shortcut_bn(self.shortcut_conv(x), mask))
+        h = torch.relu(self.bn1(self.proj_in(x), mask))
+        h = torch.relu(self.bn2(self.attn(h), mask))
+        h = self.bn3(self.proj_out(h), mask)
         return torch.relu(h + shortcut)
 
 
@@ -128,7 +156,9 @@ class BottleStack(nn.Module):
                 dim if i == 0 else dim_out, dim_out, fmap_size, proj_factor,
                 heads, dim_head))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask`` (B,) 0/1 restricts every BatchNorm's train-mode
+        statistics to the real rows; eval mode ignores it."""
         for block in self.children():
-            x = block(x)
+            x = block(x, mask)
         return x

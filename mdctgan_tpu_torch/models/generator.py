@@ -1,9 +1,13 @@
-"""pix2pixHD-style generators (NCHW), inference form.
+"""pix2pixHD-style generators (NCHW).
 
 The port of ``mdctgan_tpu/models/generator.py``.  Submodule names follow the
 Flax tree (``global.down0.conv1.conv``, ``local_res2.conv2.conv``, ...);
 ``global`` is a Python keyword, so that branch is registered with
-``add_module`` and reached through ``self.coarse``.
+``add_module`` and reached through ``self.coarse``.  ``module.train()`` /
+``.eval()`` picks the attention stack's BatchNorm statistics (batch or
+running), as ``train=`` does in Flax; ``sample_mask`` (B,) 0/1 restricts the
+batch statistics to the real rows of a padded tail batch (every other norm
+here is per sample).
 
 Ported: ``GlobalGenerator`` (with and without its 7x7 tanh head) and
 ``LocalEnhancer`` with one enhancer branch, with the ``conv``/``resconv``
@@ -14,7 +18,7 @@ downsample and the ``interpolate`` upsample.  Not ported yet (they raise
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -89,17 +93,18 @@ class GlobalGenerator(nn.Module):
         if include_head:
             self.head = Conv(ngf, output_nc, 7)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = instance_norm_relu(self.stem(reflect_pad(x, 3)))
         for i in range(self.n_downsampling):
             h = instance_norm_relu(getattr(self, f"down{i}")(h))
         mid = self.n_blocks // 2
         for i in range(self.n_blocks):
             if i == mid and self.attn is not None:
-                h = self.attn(h)
+                h = self.attn(h, sample_mask)
             h = getattr(self, f"res{i}")(h)
         if self.n_blocks == 0 and self.attn is not None:
-            h = self.attn(h)
+            h = self.attn(h, sample_mask)
         for i in range(self.n_downsampling):
             h = instance_norm_relu(getattr(self, f"up{i}")(h))
         if not self.include_head:
@@ -153,9 +158,10 @@ class LocalEnhancer(nn.Module):
     def coarse(self) -> GlobalGenerator:
         return self._modules["global"]
 
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
+    def logits(self, x: torch.Tensor,
+               sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The output before its tanh."""
-        coarse = self.coarse(avg_pool_3x3_s2(x))
+        coarse = self.coarse(avg_pool_3x3_s2(x), sample_mask)
         h = instance_norm_relu(self.local_stem(reflect_pad(x, 3)))
         h = instance_norm_relu(self.local_down(h)) + coarse
         for i in range(self.n_blocks_local):
@@ -163,8 +169,9 @@ class LocalEnhancer(nn.Module):
         h = instance_norm_relu(self.local_up(h))
         return self.local_head(reflect_pad(h, 3))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.tanh(self.logits(x))
+    def forward(self, x: torch.Tensor,
+                sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return torch.tanh(self.logits(x, sample_mask))
 
 
 def build_generator(opt: Mapping) -> nn.Module:

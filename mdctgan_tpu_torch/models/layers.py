@@ -37,6 +37,10 @@ def instance_norm_relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(instance_norm(x))
 
 
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    return F.leaky_relu(x, slope)
+
+
 def avg_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """AvgPool2d(3, stride=2, padding=1, count_include_pad=False)."""
     return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=False)

@@ -123,6 +123,15 @@ class SpectralTransform:
         )
         return log_spectro[:, None], self.norm_param()
 
+    def lr_forward(self, lr_audio: torch.Tensor):
+        """The LR branch of a train step.  Spectral masking is not ported
+        (the constructor raises for it), so this is ``to_spectro``."""
+        return self.to_spectro(lr_audio)
+
+    def hr_forward(self, hr_audio: torch.Tensor):
+        """The HR branch of a train step: ``to_spectro``, as ``lr_forward``."""
+        return self.to_spectro(hr_audio)
+
     def to_audio(
         self,
         log_spectro: torch.Tensor,

@@ -1,14 +1,15 @@
-"""Options dict -> spectral configuration.
+"""Options dict -> spectral configuration and train options.
 
 The port takes its options as a plain dict whose keys are the reference CLI
-flags (``vars()`` of a parsed reference namespace works as it is).  A key
-that is absent takes the ``SpectralConfig`` default, which is the flagship
-transform.
+flags (``vars()`` of a parsed reference namespace works as it is).  A
+spectral key that is absent takes the ``SpectralConfig`` default, which is
+the flagship transform; a train key that is absent takes the default of the
+reference's train options.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 from mdctgan_tpu_torch.ops.features import SpectralConfig
 
@@ -27,3 +28,24 @@ def spectral_config_from_opt(opt: Mapping) -> SpectralConfig:
         if k in fields:
             fields[k] = tuple(float(v) for v in fields[k])
     return SpectralConfig(**fields)
+
+
+# The train keys and their defaults (the JAX package's ``TrainOptions``).
+TRAIN_DEFAULTS = dict(
+    lr=0.0002, beta1=0.5, niter=100, niter_decay=100, niter_fix_global=0,
+    ndf=64, n_layers_D=3, num_D=2, lambda_feat=10.0, no_lsgan=False,
+    no_ganFeat_loss=False, pool_size=0, freeze_g_d=False, freeze_g_u=False,
+    freeze_l_d=False, freeze_l_u=False, fp16=False, accum_steps=1,
+)
+
+
+def train_options(opt: Mapping) -> Dict:
+    """The train keys of ``opt``, with defaults.  Raises
+    ``NotImplementedError`` for what the port does not train yet: the bf16
+    policy (``fp16``) and gradient accumulation (``accum_steps > 1``)."""
+    out = {k: opt.get(k, v) for k, v in TRAIN_DEFAULTS.items()}
+    if out["fp16"]:
+        raise NotImplementedError("the bf16 policy (fp16) is not ported")
+    if int(out["accum_steps"]) > 1:
+        raise NotImplementedError("gradient accumulation (accum_steps > 1) is not ported")
+    return out

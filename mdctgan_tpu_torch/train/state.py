@@ -1,0 +1,59 @@
+"""Train state: the port of ``mdctgan_tpu/train/state.py``.
+
+Where the JAX state holds parameter trees and optax states, this one holds
+the two modules (whose parameters and BatchNorm buffers are the state),
+their two optimizers and the step count, which is also the position of the
+learning-rate schedule.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from mdctgan_tpu_torch.device import resolve_device
+from mdctgan_tpu_torch.train.schedule import OptimizerSpec
+from mdctgan_tpu_torch.weights import init_weights
+
+
+@dataclasses.dataclass
+class GANTrainState:
+    step: int
+    generator: nn.Module
+    discriminator: nn.Module
+    g_opt: torch.optim.Optimizer
+    d_opt: torch.optim.Optimizer
+
+    def params_count(self) -> int:
+        return sum(p.numel() for p in self.generator.parameters())
+
+
+def create_train_state(
+    generator: nn.Module,
+    discriminator: nn.Module,
+    g_tx: OptimizerSpec,
+    d_tx: OptimizerSpec,
+    device="cuda",
+    rng: Optional[torch.Generator] = None,
+) -> GANTrainState:
+    """Both modules on ``device`` in train mode, with their optimizers and
+    step 0.  With ``rng`` the weights get the reference initialisation drawn
+    from it (``weights.init_weights``, G then D); without, they stay as
+    given (a ``load_state_dict`` before this call).  Raises when ``device``
+    is CUDA and CUDA is absent."""
+    dev = resolve_device(device)
+    if rng is not None:
+        init_weights(generator, rng)
+        init_weights(discriminator, rng)
+    generator.to(dev).train()
+    discriminator.to(dev).train()
+    return GANTrainState(
+        step=0,
+        generator=generator,
+        discriminator=discriminator,
+        g_opt=g_tx.init(generator.named_parameters()),
+        d_opt=d_tx.init(discriminator.named_parameters()),
+    )

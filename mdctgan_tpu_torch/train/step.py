@@ -1,18 +1,154 @@
-"""The serving forward (the inference half of ``mdctgan_tpu/train/step.py``).
+"""The GAN train step and the serving forward: the port of
+``mdctgan_tpu/train/step.py``.
 
-The train step (discriminator, losses, masked BatchNorm statistics, Adam)
-belongs to a later part of the port.
+Per step (``build_train_step``):
+
+  * loss_D = 0.5 * (LSGAN(D(lr, sg(sr)), 0) + LSGAN(D(lr, hr), 1))
+  * loss_G = LSGAN(D_sg(lr, sr), 1) + FeatMatch(D_sg(lr, sr), sg(D(lr, hr)))
+
+where sg detaches and D_sg is D called with detached *parameters*, so the
+gradient of loss_G reaches G through D's activations and never D.  One
+``torch.autograd.grad`` of loss_G + loss_D gives both gradient sets, as the
+JAX step's one ``jax.grad`` does, and the two optimizers step.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from mdctgan_tpu_torch.device import float32_policy
+from mdctgan_tpu_torch.models.losses import feature_matching_loss, gan_loss
 from mdctgan_tpu_torch.ops.features import SpectralTransform
+from mdctgan_tpu_torch.train.schedule import OptimizerSpec
+from mdctgan_tpu_torch.train.state import GANTrainState
+
+
+def generator_forward(
+    generator: nn.Module,
+    transform: SpectralTransform,
+    lr_spectro: torch.Tensor,
+    sample_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Normalized LR spectrum (B, 1, F, K) -> SR spectrum: the abs input
+    channel, the generator (in its current train/eval mode) and, under
+    fit_residual, the LR spectrum added.  ``sample_mask`` restricts the
+    attention stack's BatchNorm batch statistics to the real rows."""
+    sr = generator(transform.g_input(lr_spectro), sample_mask)
+    if transform.cfg.fit_residual:
+        sr = sr + lr_spectro
+    return sr
+
+
+def _params(opt: torch.optim.Optimizer):
+    return [p for group in opt.param_groups for p in group["params"]]
+
+
+def build_train_step(
+    transform: SpectralTransform,
+    g_tx: OptimizerSpec,
+    d_tx: OptimizerSpec,
+    use_lsgan: bool = True,
+    lambda_feat: float = 10.0,
+    n_layers_d: int = 3,
+    num_d: int = 3,
+    use_ganfeat: bool = True,
+    use_pool: bool = False,
+) -> Callable[..., Tuple[GANTrainState, Dict[str, torch.Tensor]]]:
+    """``train_step(state, batch, pool_old=None, pool_mask=None,
+    sample_mask=None, mark=None) -> (state, metrics)``.
+
+    ``batch`` holds ``lr_audio`` and ``hr_audio``, (B, T) float32 on the
+    state's device; each gives one K1 launch on a CUDA tensor, outside the
+    autograd graph (the spectra are constants of the step).  The step
+    updates ``state`` in place: G runs once in train mode (its BatchNorm
+    running statistics move once), both optimizers step with their
+    schedules read at ``state.step``, then ``state.step`` grows by one.
+    ``g_tx``/``d_tx`` give the schedules and must be the specs the state's
+    optimizers were built from.
+
+    With ``use_pool`` the D_fake input is the per-sample mix
+    ``m*pool_old + (1-m)*fake`` of ``ImagePool.presample``'s ``(pool_old,
+    pool_mask)`` (as tensors on the device), and ``metrics["fake_concat"]``
+    carries the current fakes for ``ImagePool.commit``.  ``sample_mask``
+    (B,) 0/1 weights every loss term per sample and masks the BatchNorm
+    statistics: a padded tail batch steps as the smaller batch would.
+    ``mark(name)``, when given, is called after each part of the step
+    ("k1", "g_forward", "d_forward", "backward", "optimizer") for timing.
+    The step runs under ``float32_policy()`` (TF32 off)."""
+
+    def d_concat(lr_spec, img_spec):
+        return torch.cat((lr_spec, transform.g_input(img_spec)), dim=1)
+
+    @float32_policy()
+    def train_step(state: GANTrainState, batch: Dict[str, torch.Tensor],
+                   pool_old: Optional[torch.Tensor] = None,
+                   pool_mask: Optional[torch.Tensor] = None,
+                   sample_mask: Optional[torch.Tensor] = None,
+                   mark: Optional[Callable[[str], None]] = None):
+        mark = mark or (lambda name: None)
+        gen, disc = state.generator, state.discriminator
+        with torch.no_grad():
+            lr_spec, _ = transform.lr_forward(batch["lr_audio"])
+            hr_spec, _ = transform.hr_forward(batch["hr_audio"])
+        mark("k1")
+
+        gen.train()
+        sr_spec = generator_forward(gen, transform, lr_spec, sample_mask)
+        mark("g_forward")
+
+        frozen_d = {k: v.detach() for k, v in disc.named_parameters()}
+        pred_fake_g = torch.func.functional_call(disc, frozen_d, (d_concat(lr_spec, sr_spec),))
+        fake_concat = d_concat(lr_spec, sr_spec.detach())
+        if use_pool:
+            m = pool_mask.to(fake_concat.dtype).reshape(-1, 1, 1, 1)
+            d_fake_in = m * pool_old + (1.0 - m) * fake_concat
+        else:
+            d_fake_in = fake_concat
+        # D_fake and D_real share the live parameters: one 2B call, split
+        # back per scale and layer, fake rows first
+        both = disc(torch.cat((d_fake_in, d_concat(lr_spec, hr_spec)), dim=0))
+        bsz = lr_spec.shape[0]
+        pred_fake_d = [[f[:bsz] for f in scale] for scale in both]
+        pred_real = [[f[bsz:] for f in scale] for scale in both]
+
+        loss_g_gan = gan_loss(pred_fake_g, True, use_lsgan, sample_weight=sample_mask)
+        loss_g_feat = (
+            feature_matching_loss(pred_fake_g, pred_real, n_layers_d, num_d,
+                                  lambda_feat, sample_weight=sample_mask)
+            if use_ganfeat else torch.zeros((), device=lr_spec.device))
+        loss_d_fake = gan_loss(pred_fake_d, False, use_lsgan, sample_weight=sample_mask)
+        loss_d_real = gan_loss(pred_real, True, use_lsgan, sample_weight=sample_mask)
+        loss_g = loss_g_gan + loss_g_feat
+        loss_d = 0.5 * (loss_d_fake + loss_d_real)
+        mark("d_forward")
+
+        g_params, d_params = _params(state.g_opt), _params(state.d_opt)
+        grads = torch.autograd.grad(loss_g + loss_d, g_params + d_params)
+        mark("backward")
+
+        for p, g in zip(g_params + d_params, grads):
+            p.grad = g
+        g_tx.set_lr(state.g_opt, state.step)
+        d_tx.set_lr(state.d_opt, state.step)
+        state.g_opt.step()
+        state.d_opt.step()
+        state.step += 1
+        mark("optimizer")
+
+        metrics = {
+            "G_GAN": loss_g_gan, "G_GAN_Feat": loss_g_feat,
+            "D_real": loss_d_real, "D_fake": loss_d_fake,
+            "loss_G": loss_g, "loss_D": loss_d,
+        }
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if use_pool:
+            metrics["fake_concat"] = fake_concat
+        return state, metrics
+
+    return train_step
 
 
 def build_inference_fn(

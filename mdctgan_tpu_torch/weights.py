@@ -1,7 +1,8 @@
 """Weights: the carry from the Flax trees, and seeded initialisation.
 
-The port's parameter names are the Flax tree paths joined with dots, so the
-carry from ``{"params", "batch_stats"}`` is a rename plus a transpose:
+The port's parameter names are the Flax tree paths joined with dots, for the
+generator and the discriminator alike, so the carry from ``{"params",
+"batch_stats"}`` is a rename plus a transpose:
 
     conv ``kernel`` (kH, kW, I, O)    -> ``weight`` (O, I, kH, kW)
     BatchNorm ``scale`` / ``bias``     -> ``weight`` / ``bias``
@@ -34,7 +35,8 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
 
 def state_dict_from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
     """Flax ``params`` and ``batch_stats`` trees (nested dicts of arrays) ->
-    a ``state_dict`` that the port's generator loads with ``strict=True``."""
+    a ``state_dict`` that the port's generator, or with ``batch_stats={}``
+    its discriminator, loads with ``strict=True``."""
     out: Dict[str, torch.Tensor] = {}
     for tree, leaves in ((params, _PARAM_LEAF), (batch_stats or {}, _STAT_LEAF)):
         for path, value in _flatten(tree):
@@ -44,14 +46,15 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, torc
             if path[-1] == "kernel":
                 v = np.transpose(v, (3, 2, 0, 1))
             key = ".".join(path[:-1] + (leaves[path[-1]],))
-            out[key] = torch.from_numpy(np.ascontiguousarray(v))
+            out[key] = torch.from_numpy(np.array(v, order="C"))
     return out
 
 
 def random_jax_trees(module: nn.Module, rng: np.random.Generator):
     """Seeded random ``(params, batch_stats)`` in the Flax layout for
-    ``module``: every parameter N(0, 0.05), running means N(0, 0.1), running
-    variances U(0.5, 1.5)."""
+    ``module`` (a generator or a discriminator; the latter has no
+    batch_stats): every parameter N(0, 0.05), running means N(0, 0.1),
+    running variances U(0.5, 1.5)."""
     params: Dict = {}
     stats: Dict = {}
     inverse = {"running_mean": "mean", "running_var": "var"}
@@ -79,10 +82,10 @@ def random_jax_trees(module: nn.Module, rng: np.random.Generator):
 
 @torch.no_grad()
 def init_weights(module: nn.Module, gen: torch.Generator) -> None:
-    """The reference initialisation, drawn from ``gen``: conv weights
-    N(0, 0.02) and zero biases, BatchNorm weights N(1, 0.02) and zero biases
-    with running statistics (0, 1), positional embeddings
-    N(0, dim_head**-0.5)."""
+    """The reference initialisation, drawn from ``gen``, of a generator or a
+    discriminator: conv weights N(0, 0.02) and zero biases, BatchNorm
+    weights N(1, 0.02) and zero biases with running statistics (0, 1),
+    positional embeddings N(0, dim_head**-0.5)."""
     for m in module.modules():
         if isinstance(m, nn.Conv2d):
             m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * 0.02)

@@ -9,9 +9,17 @@ import numpy as np
 import pytest
 import torch
 
+import functools
+
 from mdctgan_tpu_torch import api
+from mdctgan_tpu_torch.models.discriminator import build_discriminator
 from mdctgan_tpu_torch.models.generator import build_generator
 from mdctgan_tpu_torch.ops import mdct_kernels as K
+from mdctgan_tpu_torch.ops.features import SpectralTransform
+from mdctgan_tpu_torch.options import spectral_config_from_opt
+from mdctgan_tpu_torch.train.schedule import OptimizerSpec
+from mdctgan_tpu_torch.train.state import create_train_state
+from mdctgan_tpu_torch.train.step import build_train_step
 from mdctgan_tpu_torch.weights import random_jax_trees, state_dict_from_jax
 
 GAIN = 1000.0
@@ -125,3 +133,46 @@ def test_small_model_serves_through_kernels(cuda):
                        batch_size=2)
     assert got.shape == ref.shape == (36000,)
     np.testing.assert_allclose(got, ref, atol=2e-3 * float(np.abs(ref).max()))
+
+
+@pytest.mark.cuda
+def test_small_train_step_on_card_matches_cpu(cuda):
+    """Three SGD(1) steps of the small G and D on the card and on the CPU
+    from the same weights: the first step's losses agree within 1e-3
+    relative and its updates (the gradients) within 2e-3 normwise (floor
+    5e-5); K1 launched twice a step, K2 never."""
+    opt = dict(SMALL_OPT, ndf=4, n_layers_D=2, num_D=2)
+    rng = np.random.default_rng(2)
+    g_state = state_dict_from_jax(*random_jax_trees(build_generator(opt), rng))
+    d_state = state_dict_from_jax(*random_jax_trees(build_discriminator(opt), rng))
+    hr = (0.1 * rng.standard_normal((3, 8128))).astype(np.float32)
+    lr = (hr + 0.01 * rng.standard_normal((3, 8128))).astype(np.float32)
+    sgd = OptimizerSpec(functools.partial(torch.optim.SGD, lr=1.0))
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        gen, disc = build_generator(opt), build_discriminator(opt)
+        gen.load_state_dict(g_state, strict=True)
+        disc.load_state_dict(d_state, strict=True)
+        state = create_train_state(gen, disc, sgd, sgd, device=dev)
+        step = build_train_step(SpectralTransform(spectral_config_from_opt(opt), dev), sgd, sgd,
+                                n_layers_d=2, num_d=2)
+        batch = {"lr_audio": torch.from_numpy(lr).to(dev), "hr_audio": torch.from_numpy(hr).to(dev)}
+        K.reset_launch_counts()
+        losses = []
+        for i in range(3):
+            state, metrics = step(state, batch)
+            losses.append({k: float(v) for k, v in metrics.items()})
+            if i == 0:
+                after = {k: v.detach().cpu().clone() for k, v in
+                         list(gen.named_parameters()) + list(disc.named_parameters())}
+        runs[dev.type] = losses, after, dict(K.LAUNCHES)
+    (card_losses, card_after, launches), (cpu_losses, cpu_after, _) = runs["cuda"], runs["cpu"]
+    assert launches == {"mdct_spectro": 6, "imdct_audio": 0, "mdct_spectro_dense": 0,
+                        "imdct_audio_dense": 0}
+    for k, ref in cpu_losses[0].items():
+        assert card_losses[0][k] == pytest.approx(ref, rel=1e-3), k
+    before = {**g_state, **d_state}
+    for k, ref in cpu_after.items():
+        ref_grad, got_grad = before[k] - ref, before[k] - card_after[k]
+        err = float((got_grad - ref_grad).norm())
+        assert err <= 2e-3 * float(ref_grad.norm()) + 5e-5, k

@@ -171,6 +171,36 @@ def test_create_model_leaves_jax_unimported():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_train_step_leaves_jax_unimported():
+    """A train state built and one step taken on the CPU, in a fresh
+    interpreter: still no JAX, Flax, optax or reference module."""
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from mdctgan_tpu_torch.models.discriminator import build_discriminator\n"
+        "from mdctgan_tpu_torch.models.generator import build_generator\n"
+        "from mdctgan_tpu_torch.ops.features import SpectralTransform\n"
+        "from mdctgan_tpu_torch.options import spectral_config_from_opt\n"
+        "from mdctgan_tpu_torch.train.schedule import make_optimizers\n"
+        "from mdctgan_tpu_torch.train.state import create_train_state\n"
+        "from mdctgan_tpu_torch.train.step import build_train_step\n"
+        f"opt = dict({OPT!r}, ndf=4, n_layers_D=2, num_D=2)\n"
+        "g_tx, d_tx = make_optimizers(2e-4, 0.5, 1, 1, 10)\n"
+        "state = create_train_state(build_generator(opt), build_discriminator(opt), g_tx,\n"
+        "                           d_tx, device='cpu', rng=torch.Generator().manual_seed(0))\n"
+        "step = build_train_step(SpectralTransform(spectral_config_from_opt(opt)), g_tx, d_tx,\n"
+        "                        n_layers_d=2, num_d=2)\n"
+        "x = torch.from_numpy(0.1 * np.random.default_rng(0).standard_normal((2, 8128)))\n"
+        "state, m = step(state, {'lr_audio': x.float(), 'hr_audio': x.float()})\n"
+        "assert state.step == 1 and all(bool(torch.isfinite(v)) for v in m.values())\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{_BANNED!r})\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_create_model_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
