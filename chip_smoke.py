@@ -35,17 +35,17 @@ Phases (none catches an exception; any failure exits non-zero):
      flagship config: one SGD(lr=1) step (its update is the gradient) at
      batch 2 on the card against the same step on the CPU, from the same
      seeded weights, on white noise (the input form the JAX package's
-     flagship bounds were measured on): losses 1e-3 relative, and every
-     gradient tensor against the same step in float64 on the CPU (the
-     truth) within G 2.5e-2 / D 5e-3 normwise (floor 1e-3) plus 4x the
-     CPU float32's own error on that tensor
-     (``train/grad_truth.py``); a control reading with TF32 allowed; 10
+     flagship bounds were measured on) with the CPU fed the card's spectra:
+     losses 1e-3 relative, every gradient tensor within the JAX package's
+     flagship bounds G 2.5e-2 / D 5e-3 normwise (floor 1e-3); control
+     readings with each side on its own spectra and with TF32 allowed; 10
      steps of the flagship Adam at batch 20 on synthetic speech (finite
      losses, G and D move, K1 launched twice a step, every other kernel
      never); a batch-20 step whose ``sample_mask`` keeps 13 rows against a
      batch-13 step; the step's median time over 20 steps, samples per
      second, peak memory, one step split into its parts by CUDA events, and
-     the card's busy time per step from ``torch.profiler``.
+     the card's busy time and kernel records per step from
+     ``torch.profiler``.
 Every result is one JSON line; a ``kernels`` line sums the kernels up
 (``launches`` on the serving path, ``train_launches`` on the train path)
 and the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -200,51 +200,68 @@ def train_phase(rng, smi: str, dev: torch.device) -> dict:
 
     # 8a. one SGD(1) step at full width: card against CPU --------------------
     # On the input form of the JAX package's flagship gradient certificate
-    # (white noise; grad_truth.py), with the same step in float64 on the CPU
-    # as the truth.  Float32 alone strays from the truth here: on the CPU
-    # by up to ~1.6% normwise in the attention stack and ~0.5% in D's first
-    # layers, about the JAX bounds themselves (G 2.5e-2, D 5e-3), so two
-    # float32 runs cannot be held to those bounds of each other.  Each card
-    # tensor is held to the truth within its JAX bound plus 4x the CPU's
-    # own float32 error on that tensor: the JAX package measured its float32
-    # error at up to 3.9x torch's in the same blocks
-    # (tests/test_flagship_parity.py).  A wiring fault is O(1) normwise.
+    # (white noise), with the CPU's step fed the card's spectra (K1 is held
+    # to its plain version in phase 3).  At these seeded weights the step's
+    # gradients jump wherever an activation rounds to the other side of a
+    # ReLU, leaky-ReLU or |x| kink: the float64 step itself moves by about
+    # the JAX bounds (G 2.5e-2, D 5e-3) when only its input spectra are
+    # rounded to float32, once by K1 and once by its plain version, and
+    # smoothing every kink cuts that 6-9x (probes/flagship_grad_truth.py).
+    # So each tensor k is held within rel*||cpu_k|| + 1e-3 +
+    # C*||T_card - T_cpu||_k, T being that float64 step fed the card's and
+    # the CPU's spectra, C = ``grad_truth.CONDITIONING_FACTOR``.  The float64
+    # term does not grow with any float32 error of the port.  The card with
+    # TF32 allowed must fail the same bound.  Read, not asserted: the share
+    # of the JAX bounds alone, and each side on its own spectra.
     batch = GT.inputs("noise", rng, 2, seg)
+    card_t, cpu_t = SpectralTransform(cfg, dev), SpectralTransform(cfg, cpu)
+    f64_t = SpectralTransform(cfg, cpu, torch.float64)
     runs, secs = {}, {}
-    for name, device, dtype, tf32 in (
-            ("cpu_f64", cpu, torch.float64, False), ("cpu_f32", cpu, torch.float32, False),
-            ("card_f32", dev, torch.float32, False), ("card_tf32", dev, torch.float32, True)):
+    for name, device, dtype, transform, tf32 in (
+            ("cpu", cpu, torch.float32, GT.SharedSpectra(cpu_t, card_t), False),
+            ("cpu_own_spectra", cpu, torch.float32, cpu_t, False),
+            ("f64_card_spectra", cpu, torch.float64, GT.SharedSpectra(f64_t, card_t), False),
+            ("f64_cpu_spectra", cpu, torch.float64, GT.SharedSpectra(f64_t, cpu_t), False),
+            ("card", dev, torch.float32, card_t, False),
+            ("card_tf32", dev, torch.float32, card_t, True)):
         t0 = time.perf_counter()
-        runs[name] = GT.sgd_grads(opt, g_sd, d_sd, batch, device, dtype, tf32)
+        runs[name] = GT.sgd_step(opt, GT.load_nets(opt, g_sd, d_sd, dtype), transform, batch,
+                                 device, allow_tf32=tf32)
         secs[name] = time.perf_counter() - t0
     emit({"train_step_s": secs, "batch": 2, "cpu_threads": torch.get_num_threads()})
-    cpu_losses, cpu_grads = runs["cpu_f32"]
-    truth = runs["cpu_f64"][1]
-    for name in ("card_f32", "card_tf32"):
-        losses, grads = runs[name]
-        loss_rel = max(abs(losses[k] - v) / max(abs(v), 1e-30) for k, v in cpu_losses.items())
+    moved = {net: {k: float((t - runs["f64_cpu_spectra"][1][net][k]).norm())
+                   for k, t in runs["f64_card_spectra"][1][net].items()} for net in GT.BOUNDS}
+    emit({"reading": "float64 step, card's spectra against the CPU's",
+          **{net: {k: v for k, v in GT.normwise(runs["f64_cpu_spectra"][1][net],
+                                                runs["f64_card_spectra"][1][net], rel).items()
+                   if k != "shares"} for net, rel in GT.BOUNDS.items()}})
+    held = {}
+    for label, name, ref in (
+            ("control: card vs CPU, each on its own spectra", "card", "cpu_own_spectra"),
+            ("control: card with TF32 allowed vs CPU", "card_tf32", "cpu"),
+            ("check: card vs CPU on the same spectra", "card", "cpu")):
+        (losses, grads), (ref_losses, ref_grads) = runs[name], runs[ref]
+        loss_rel = max(abs(losses[k] - v) / max(abs(v), 1e-30) for k, v in ref_losses.items())
         result = {"batch": 2, "data": "noise", "loss_max_rel_err": loss_rel,
-                  "losses_card": losses, "losses_cpu": cpu_losses}
+                  "losses_card": losses, "losses_cpu": ref_losses}
         for net, rel in GT.BOUNDS.items():
-            share = 0.0
-            for k, t in truth[net].items():
-                bound = rel * float(t.norm()) + GT.FLOOR + 4.0 * float((cpu_grads[net][k] - t).norm())
-                share = max(share, float((grads[net][k] - t).norm()) / bound)
-            result[net] = {"bound_rel": rel, "floor": GT.FLOOR, "max_share_of_bound": share,
-                           **{key: {k: v for k, v in r.items() if k != "shares"}
-                              for key, r in (
-                                  ("vs_cpu_f32", GT.normwise(cpu_grads[net], grads[net], rel)),
-                                  ("vs_truth", GT.normwise(truth[net], grads[net], rel)),
-                                  ("cpu_f32_vs_truth", GT.normwise(truth[net], cpu_grads[net], rel)))}}
-        if name == "card_tf32":
-            emit({"control": "train step card vs CPU with TF32 allowed", **result})
-            continue
-        emit({"check": "train step card vs CPU", **result})
-        if not loss_rel <= 1e-3:
-            raise AssertionError(f"train losses card vs CPU: {loss_rel} > 1e-3")
-        for net in GT.BOUNDS:
-            if not result[net]["max_share_of_bound"] <= 1.0:
-                raise AssertionError(f"{net} gradient card vs CPU: {result[net]}")
+            slack = {k: GT.CONDITIONING_FACTOR * v for k, v in moved[net].items()}
+            r = GT.normwise(ref_grads[net], grads[net], rel, slack=slack)
+            plain = GT.normwise(ref_grads[net], grads[net], rel)
+            result[net] = {"bound_rel": rel, "floor": GT.FLOOR,
+                           "conditioning_factor": GT.CONDITIONING_FACTOR,
+                           "max_share_of_bound": r["max_share"], "worst": r["worst"],
+                           "max_share_of_jax_bound": plain["max_share"],
+                           "worst_on_jax_bound": plain["worst"]}
+        kind, what = label.split(": ")
+        emit({kind: f"train step {what}", **result})
+        held[name, ref] = (loss_rel, max(result[net]["max_share_of_bound"] for net in GT.BOUNDS))
+    loss_rel, share = held["card", "cpu"]
+    if not (loss_rel <= 1e-3 and share <= 1.0):
+        raise AssertionError(f"train step card vs CPU: losses {loss_rel} (1e-3), "
+                             f"gradients {share} of their bound")
+    if not held["card_tf32", "cpu"][1] > 1.0:
+        raise AssertionError("TF32 passes the train gradient bound: it is too loose")
 
     # synthetic speech at 48 kHz, cut into segments; LR by the port's degrade
     n_seg = TRAIN_BATCH * 2
@@ -259,8 +276,7 @@ def train_phase(rng, smi: str, dev: torch.device) -> dict:
 
     # 8b. the trainer: flagship Adam at batch 20 --------------------------------
     spe = 1000  # the schedule is flat through the first 60 epochs at any size
-    g_tx, d_tx = make_optimizers(tro["lr"], tro["beta1"], tro["niter"], tro["niter_decay"],
-                                 spe, tro["accum_steps"])
+    g_tx, d_tx = make_optimizers(tro["lr"], tro["beta1"], tro["niter"], tro["niter_decay"], spe)
     state = create_train_state(build_generator(opt), build_discriminator(opt), g_tx, d_tx,
                                device=dev, rng=torch.Generator().manual_seed(SEED))
     step = build_train_step(SpectralTransform(cfg, dev), g_tx, d_tx, **step_kw)
@@ -339,28 +355,6 @@ def train_phase(rng, smi: str, dev: torch.device) -> dict:
         for name in marks:
             parts[name].append(prev.elapsed_time(events[name]))
             prev = events[name]
-    # the generator's forward alone at batch 20: train mode with the graph
-    # recorded (as in the step), train mode without it, eval mode
-    with torch.no_grad():
-        g_in = SpectralTransform(cfg, dev).g_input(
-            SpectralTransform(cfg, dev).lr_forward(batches[0]["lr_audio"])[0])
-    forward_ms = {}
-    for label, train, grad in (("train_grad", True, True), ("train_no_grad", True, False),
-                               ("eval_no_grad", False, False)):
-        state.generator.train(train)
-        runs_ms = []
-        for i in range(7):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            with torch.set_grad_enabled(grad):
-                start.record()
-                out = state.generator(g_in)
-                end.record()
-            end.synchronize()
-            del out
-            if i >= 2:
-                runs_ms.append(start.elapsed_time(end))
-        forward_ms[label] = statistics.median(runs_ms)
-    state.generator.train()
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -372,32 +366,6 @@ def train_phase(rng, smi: str, dev: torch.device) -> dict:
             step(state, batches[i % 2])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-    # A reading, not the port's setting: the same forward and steps with
-    # cuDNN's autotuner choosing each convolution's algorithm by timing.
-    saved = torch.backends.cudnn.benchmark
-    torch.backends.cudnn.benchmark = True
-    try:
-        state.generator.eval()
-        bench_fwd = []
-        with torch.no_grad():
-            for i in range(7):
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                state.generator(g_in)
-                end.record()
-                end.synchronize()
-                if i >= 2:
-                    bench_fwd.append(start.elapsed_time(end))
-        state.generator.train()
-        for i in range(3):
-            timed_step(i)
-        bench_steps = [timed_step(i) for i in range(10)]
-    finally:
-        torch.backends.cudnn.benchmark = saved
-    autotuned = {"eval_forward_ms": statistics.median(bench_fwd),
-                 "step_ms": statistics.median(bench_steps),
-                 "samples_per_s": TRAIN_BATCH / statistics.median(bench_steps) * 1e3}
-
     # busy time: the union of the device records' intervals (annotations
     # left out), so overlapping records are not counted twice
     records = [e for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -406,11 +374,6 @@ def train_phase(rng, smi: str, dev: torch.device) -> dict:
     for a, b in sorted((e.time_range.start, e.time_range.end) for e in records):
         busy_us += max(0.0, b - max(a, reach))
         reach = max(reach, b)
-    by_name = {}
-    for e in records:
-        total, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (total + e.time_range.elapsed_us(), count + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     busy_ms = busy_us / 1e3 / 3
     emit({"timing": {"name": "train_step", "card": smi, "batch": TRAIN_BATCH,
                      "ms": step_ms, "ms_min": min(times), "ms_max": max(times),
@@ -418,13 +381,9 @@ def train_phase(rng, smi: str, dev: torch.device) -> dict:
                      "host_enqueue_ms": host_ms,
                      "max_memory_allocated_bytes": peak,
                      "parts_ms": {k: statistics.median(v) for k, v in parts.items()},
-                     "generator_forward_ms": forward_ms,
-                     "with_cudnn_autotuner": autotuned,
                      "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
                      "device_idle_share": 1.0 - busy_ms / wall_ms,
-                     "top_kernels_ms_per_step": [
-                         {"name": n[:90], "ms": t / 1e3 / 3, "count": c / 3}
-                         for n, (t, c) in top]}})
+                     "device_records_per_step": len(records) / 3}})
     return train_launches
 
 

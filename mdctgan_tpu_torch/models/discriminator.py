@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 
 from mdctgan_tpu_torch.models.layers import Conv, avg_pool_3x3_s2, instance_norm, leaky_relu
+from mdctgan_tpu_torch.options import train_options
 
 
 class NLayerDiscriminator(nn.Module):
@@ -72,16 +73,15 @@ class MultiscaleDiscriminator(nn.Module):
 
 
 def build_discriminator(opt: Mapping) -> MultiscaleDiscriminator:
-    """Discriminator from an options dict (keys and defaults of the
-    reference ``build_discriminator``).  It sees the LR spectrum beside the
-    generator's input channels of an image: ``input_nc + output_nc``."""
-    get = opt.get
-    if get("fp16", False):
-        raise NotImplementedError("the bf16 policy (fp16) is not ported")
+    """Discriminator from an options dict, with the defaults of
+    ``options.train_options`` (which raises for what the port does not
+    train yet).  It sees the LR spectrum beside the generator's input
+    channels of an image: ``input_nc + output_nc``."""
+    tro = train_options(opt)
     return MultiscaleDiscriminator(
-        input_nc=get("input_nc", 2) + get("output_nc", 1),
-        ndf=get("ndf", 64),
-        n_layers=get("n_layers_D", 3),
-        num_D=get("num_D", 2),
-        use_sigmoid=bool(get("no_lsgan", False)),
+        input_nc=opt.get("input_nc", 2) + opt.get("output_nc", 1),
+        ndf=tro["ndf"],
+        n_layers=tro["n_layers_D"],
+        num_D=tro["num_D"],
+        use_sigmoid=bool(tro["no_lsgan"]),
     )

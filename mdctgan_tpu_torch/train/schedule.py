@@ -68,13 +68,11 @@ def pix2pixhd_lr_schedule(lr0: float, niter: int, niter_decay: int,
 
 
 def make_optimizers(lr: float, beta1: float, niter: int, niter_decay: int,
-                    steps_per_epoch: int, accum_steps: int = 1
-                    ) -> Tuple[OptimizerSpec, OptimizerSpec]:
+                    steps_per_epoch: int) -> Tuple[OptimizerSpec, OptimizerSpec]:
     """The reference's two optimizers: Adam(lr, betas (beta1, 0.999),
     eps 1e-8) for G and for D, with the epoch-linear decay.  Gradient
-    accumulation (``accum_steps > 1``) is not ported."""
-    if int(accum_steps) > 1:
-        raise NotImplementedError("gradient accumulation (accum_steps > 1) is not ported")
+    accumulation is not ported: ``options.train_options`` raises for
+    ``accum_steps > 1``."""
     sched = pix2pixhd_lr_schedule(lr, niter, niter_decay, steps_per_epoch)
     adam = functools.partial(torch.optim.Adam, lr=lr, betas=(beta1, 0.999), eps=1e-8)
     return OptimizerSpec(adam, sched), OptimizerSpec(adam, sched)

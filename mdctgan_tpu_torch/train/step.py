@@ -56,6 +56,7 @@ def build_train_step(
     num_d: int = 3,
     use_ganfeat: bool = True,
     use_pool: bool = False,
+    allow_tf32: bool = False,
 ) -> Callable[..., Tuple[GANTrainState, Dict[str, torch.Tensor]]]:
     """``train_step(state, batch, pool_old=None, pool_mask=None,
     sample_mask=None, mark=None) -> (state, metrics)``.
@@ -77,18 +78,22 @@ def build_train_step(
     statistics: a padded tail batch steps as the smaller batch would.
     ``mark(name)``, when given, is called after each part of the step
     ("k1", "g_forward", "d_forward", "backward", "optimizer") for timing.
-    The step runs under ``float32_policy()`` (TF32 off)."""
+    The step runs under ``float32_policy(allow_tf32)``: TF32 off unless a
+    caller asks for it to read what it costs."""
 
     def d_concat(lr_spec, img_spec):
         return torch.cat((lr_spec, transform.g_input(img_spec)), dim=1)
 
-    @float32_policy()
     def train_step(state: GANTrainState, batch: Dict[str, torch.Tensor],
                    pool_old: Optional[torch.Tensor] = None,
                    pool_mask: Optional[torch.Tensor] = None,
                    sample_mask: Optional[torch.Tensor] = None,
                    mark: Optional[Callable[[str], None]] = None):
-        mark = mark or (lambda name: None)
+        with float32_policy(allow_tf32):
+            return step_body(state, batch, pool_old, pool_mask, sample_mask,
+                             mark or (lambda name: None))
+
+    def step_body(state, batch, pool_old, pool_mask, sample_mask, mark):
         gen, disc = state.generator, state.discriminator
         with torch.no_grad():
             lr_spec, _ = transform.lr_forward(batch["lr_audio"])

@@ -1,6 +1,6 @@
 """Per-convolution times of the flagship generator's forward on one GPU.
 
-    python3 -m mdctgan_tpu_torch.models.conv_probe [--batches 8 20]
+    python3 probes/conv_probe.py [--batches 8 20]
 
 For each batch: the flagship ``LocalEnhancer`` (reference initialisation,
 seed 0) in eval mode without a graph, on random input, under the port's
@@ -17,9 +17,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
+import sys
 
 import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 
 def _probe(gen, x, runs: int = 3):

@@ -144,7 +144,8 @@ def _banned(module: str) -> bool:
 
 
 def test_port_imports_no_jax():
-    files = sorted((ROOT / "mdctgan_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted((ROOT / "mdctgan_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "probes").glob("*.py")))
     assert len(files) > 10
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

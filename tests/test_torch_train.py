@@ -521,6 +521,32 @@ def test_fix_global_step_matches_jax(env, jax_sgd):
     _assert_normwise(ref_d, _deltas(d0, state.discriminator), 2e-3, 5e-5, "D grad")
 
 
+def test_shared_spectra_and_slack():
+    """``SharedSpectra`` hands the step another transform's spectra in its
+    own dtype (the card-against-CPU check feeds both runs K1's output), and
+    ``normwise``'s per-tensor slack widens exactly the tensor it names."""
+    from mdctgan_tpu_torch.train import grad_truth
+
+    cfg = SpectralConfig(**SPECTRAL)
+    f32 = SpectralTransform(cfg)
+    shared = grad_truth.SharedSpectra(SpectralTransform(cfg, "cpu", torch.float64), f32)
+    audio = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 1984)))
+    for name in ("lr_forward", "hr_forward"):
+        got, params = getattr(shared, name)(audio)
+        ref, ref_params = getattr(f32, name)(audio.float())
+        assert got.dtype == torch.float64 and params == ref_params
+        assert torch.equal(got, ref.double())
+    assert shared.cfg is shared.transform.cfg
+
+    ref = {"a": torch.ones(4), "b": torch.ones(4)}
+    got = {"a": torch.ones(4) * 1.1, "b": torch.ones(4) * 1.1}  # err 0.2, norm 2
+    plain = grad_truth.normwise(ref, got, 0.05, floor=0.0)
+    held = grad_truth.normwise(ref, got, 0.05, floor=0.0, slack={"a": 0.1, "b": 0.0})
+    assert plain["shares"]["a"] == pytest.approx(2.0)
+    assert held["shares"]["a"] == pytest.approx(1.0)
+    assert held["shares"]["b"] == pytest.approx(2.0)
+
+
 def test_float64_step_agrees_with_float32():
     """The port's step runs in float64 too (``train/grad_truth.py`` takes it
     as the truth for float32 runs): at small width the two agree on the
@@ -567,7 +593,5 @@ def test_unported_train_options_raise():
         train_options({"fp16": True})
     with pytest.raises(NotImplementedError):
         train_options({"accum_steps": 2})
-    with pytest.raises(NotImplementedError):
-        schedule.make_optimizers(2e-4, 0.5, 1, 1, 1, accum_steps=4)
     with pytest.raises(NotImplementedError):
         build_discriminator({"fp16": True})
