@@ -45,20 +45,36 @@ Phases (none catches an exception; any failure exits non-zero):
      batch-13 step; the step's median time over 20 steps, samples per
      second, peak memory, one step split into its parts by CUDA events, and
      the card's busy time and kernel records per step from
-     ``torch.profiler``.
+     ``torch.profiler``;
+  9. the generate entry point, ``generate_cli.main`` with
+     ``generate_audio.sh``'s flags (without ``--fp16``): a reference-layout
+     ``latest_net_G.pth`` of seeded flagship weights (the output head damped
+     100x, so the SR stays within the WAVs' full scale as a trained model's
+     does) and three synthetic-speech WAVs at 48 kHz (1.0, 2.2, 3.7 s) plus
+     one file that cannot be decoded, in batch mode on the card: a strict
+     load, 3 rows and ``MEAN`` in ``metrics.csv``, all finite but
+     ``snr_seg``, the bad file skipped, K1 and K2 once per batch, the dense
+     forms never; the 1.0 s file again on the CPU (batch 2): its SR WAV
+     within 2e-3 of its largest value, LSD 1e-3 relative, each SNR 0.01 dB,
+     MSE 1e-2 relative; the JAX package's default generator (``netG global``,
+     transconv up) at batch 2 on the card against the CPU, within 5e-4 with a
+     TF32 control reading; the batch-mode run timed after a warm-up file.
 Every result is one JSON line; a ``kernels`` line sums the kernels up
-(``launches`` on the serving path, ``train_launches`` on the train path)
-and the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
-run outside a checkout of the repository, it prints no result and exits 2.
+(``launches`` on the serving path, ``train_launches`` on the train path,
+``generate_launches`` on the generate path) and the last line is
+``{"ok": true, "device": {...}}``.  Without CUDA, or run outside a checkout
+of the repository, it prints no result and exits 2.
 """
 
 from __future__ import annotations
 
+import csv
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -73,6 +89,20 @@ MAIN_BATCH = 8  # api.upsample's batch of segments
 TRAIN_BATCH = 20  # train.sh's batch
 TRAIN_STEPS = 10
 GAIN = 1000.0
+# generate_audio.sh's flags without --fp16 (the bf16 policy is not ported)
+GENERATE_FLAGS = [
+    "--lr_sampling_rate", "16000", "--sr_sampling_rate", "48000",
+    "--batchSize", "16", "--nThreads", "1",
+    "--arcsinh_transform", "--abs_spectro", "--arcsinh_gain", "1000", "--center",
+    "--norm_range", "-1", "1", "--smooth", "0.0", "--abs_norm", "--src_range", "-5", "5",
+    "--netG", "local", "--ngf", "56", "--niter", "40",
+    "--n_downsample_global", "3", "--n_blocks_global", "4",
+    "--n_blocks_attn_g", "3", "--dim_head_g", "128", "--heads_g", "6", "--proj_factor_g", "4",
+    "--n_blocks_attn_l", "0", "--n_blocks_local", "3", "--gen_overlap", "0",
+    "--fit_residual", "--upsample_type", "interpolate", "--downsample_type", "resconv",
+    "--phase", "test",
+]
+GENERATE_SECONDS = (1.0, 2.2, 3.7)
 # Published peaks: float32 FMA rate outside the tensor cores, memory rate.
 PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12)}
 # K1's epilogue and K2's prologue per spectrum value: the gain, asinh or
@@ -387,6 +417,163 @@ def train_phase(rng, smi: str, dev: torch.device) -> dict:
     return train_launches
 
 
+def generate_phase(rng, smi: str, dev: torch.device) -> dict:
+    """Phase 9; returns each kernel's launches in the checked batch-mode
+    run on the card."""
+    from mdctgan_tpu_torch import api, generate_cli
+    from mdctgan_tpu_torch.data import native
+    from mdctgan_tpu_torch.data.synthetic import speech_like
+    from mdctgan_tpu_torch.device import float32_policy
+    from mdctgan_tpu_torch.models.generator import build_generator
+    from mdctgan_tpu_torch.ops import mdct_kernels as K
+    from mdctgan_tpu_torch.options import TrainOptions, defaults
+    from mdctgan_tpu_torch.train.import_torch import export_to_torch_keys, generator_entries_for
+    from mdctgan_tpu_torch.train.restore import load_generator_state
+    from mdctgan_tpu_torch.weights import random_jax_trees, state_dict_from_jax
+
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="generate_", dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        cuda_id = ["--gpu_ids", str(dev.index or 0)]
+
+        def run(name, dataroot, *extra):
+            return generate_cli.main(GENERATE_FLAGS + [
+                "--name", name, "--dataroot", str(dataroot), "--checkpoints_dir",
+                str(tmp / "out"), "--load_pretrain", str(tmp / "pretrained"), *extra])
+
+        # 9.1 a reference-layout .pth of seeded flagship weights
+        opt = TrainOptions().parse(GENERATE_FLAGS + ["--checkpoints_dir", str(tmp / "out")],
+                                   save=False)
+        gen = build_generator(opt)
+        state = state_dict_from_jax(*random_jax_trees(gen, rng))
+        state["local_head.conv.weight"] *= 0.01
+        (tmp / "pretrained").mkdir()
+        torch.save(export_to_torch_keys(state, generator_entries_for(gen)),
+                   tmp / "pretrained" / "latest_net_G.pth")
+
+        # 9.2 three WAVs of synthetic speech at 48 kHz and one bad file
+        wavs = tmp / "wavs"
+        wavs.mkdir()
+        names = [f"speech_{round(s * 1000)}ms" for s in GENERATE_SECONDS]
+        for name, s in zip(names, GENERATE_SECONDS):
+            native.write_wav16(str(wavs / f"{name}.wav"), speech_like(rng, s, 48000), 48000)
+        (wavs / "broken.wav").write_bytes(b"RIFF\x00\x00not audio" * 8)
+        (tmp / "first.csv").write_text(f"wavs/{names[0]}.wav\n")
+
+        # 9.3 batch mode on the card
+        K.reset_launch_counts()
+        card = run("card", wavs, *cuda_id)
+        launches = dict(K.LAUNCHES)
+        seg, bs = opt.segment_length, opt.batchSize
+        batches = 0
+        for s in GENERATE_SECONDS:  # 48 kHz -> 16 kHz -> 48 kHz, then segments
+            lr_len = 3 * math.ceil(round(s * 48000) / 3)
+            batches += math.ceil(max(1, math.ceil(lr_len / seg)) / bs)
+        with open(tmp / "out" / "card" / "metrics.csv") as f:
+            rows = list(csv.DictReader(f))
+        emit({"generate_run": {"rows": rows, "rungs": card["rungs"], "launches": launches,
+                               "batches": batches}})
+        if card["rungs"]:
+            raise AssertionError(f"the .pth loaded through fallback rungs {card['rungs']}")
+        if [r["file"] for r in rows] != [str(wavs / f"{n}.wav") for n in names] + ["MEAN"]:
+            raise AssertionError(f"metrics.csv rows {[r['file'] for r in rows]}")
+        for r in rows:
+            for k in ("mse", "snr_sr", "snr_lr", "lsd"):
+                if not math.isfinite(float(r[k])):
+                    raise AssertionError(f"{r['file']}: {k} = {r[k]}")
+        expected = {name: 0 for name in K.LAUNCHES}
+        expected["mdct_spectro"] = expected["imdct_audio"] = batches
+        if launches != expected:
+            raise AssertionError(f"generate launches {launches}, expected {expected}")
+
+        # 9.4 the 1.0 s file on the CPU
+        cpu = run("cpu", tmp / "first.csv", "--gpu_ids", "-1", "--batchSize", "2")
+        got, ref = card["rows"][0], cpu["rows"][0]
+        sr = native.read(str(tmp / "out" / "card" / got["output"]))[0]
+        sr_ref = native.read(str(tmp / "out" / "cpu" / ref["output"]))[0]
+        scale = float(np.abs(sr_ref).max())
+        check("generate SR WAV card vs CPU", float(np.abs(sr - sr_ref).max()), 2e-3 * scale,
+              file=names[0], max_abs_ref=scale, samples=len(sr_ref))
+        check("generate LSD card vs CPU (relative)",
+              abs(got["lsd"] - ref["lsd"]) / ref["lsd"], 1e-3, card=got["lsd"], cpu=ref["lsd"])
+        check("generate MSE card vs CPU (relative)",
+              abs(got["mse"] - ref["mse"]) / ref["mse"], 1e-2, card=got["mse"], cpu=ref["mse"])
+        for k in ("snr_sr", "snr_lr", "snr_seg"):
+            check(f"generate {k} card vs CPU (dB)", abs(got[k] - ref[k]), 0.01,
+                  card=got[k], cpu=ref[k])
+
+        # 9.5 the JAX package's default generator: netG global, transconv up
+        g_opt = defaults()
+        g_state = state_dict_from_jax(*random_jax_trees(build_generator(g_opt), rng))
+        card_net, cpu_net = (build_generator(g_opt) for _ in range(2))
+        for net, where in ((card_net, dev), (cpu_net, torch.device("cpu"))):
+            net.load_state_dict(g_state, strict=True)
+            net.to(where).eval()
+        x = torch.from_numpy(rng.standard_normal((2, 2, 128, 256)).astype(np.float32))
+        with torch.inference_mode():
+            cpu_logits = cpu_net.logits(x)
+            card_logits = {}
+            for tf32 in (False, True):
+                with float32_policy(allow_tf32=tf32):
+                    card_logits[tf32] = card_net.logits(x.to(dev)).cpu()
+        ref_scale = float(cpu_logits.abs().max())
+        bound = 5e-4 * max(1.0, ref_scale)
+        check("netG global (transconv) logits card vs CPU", max_err(card_logits[False], cpu_logits),
+              bound, batch=2, max_abs_ref=ref_scale,
+              parameters=sum(p.numel() for p in cpu_net.parameters()))
+        check("netG global (transconv) output card vs CPU",
+              max_err(torch.tanh(card_logits[False]), torch.tanh(cpu_logits)), 5e-4, batch=2)
+        emit({"control": "netG global card vs CPU with TF32 allowed",
+              "logits_max_abs_err": max_err(card_logits[True], cpu_logits), "bound": bound,
+              "output_max_abs_err": max_err(torch.tanh(card_logits[True]), torch.tanh(cpu_logits))})
+        del card_net, cpu_net, card_logits
+
+        # 9.6 the batch-mode run, timed after a warm-up file
+        run("warmup", tmp / "first.csv", *cuda_id)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run("timed", wavs, *cuda_id)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        # the same run's parts: the model and its weights, then each file
+        opt.gpu_ids, opt.load_pretrain = [dev.index or 0], str(tmp / "pretrained")
+        t0 = time.perf_counter()
+        model = api.create_model(opt, dev)
+        model.generator.load_state_dict(load_generator_state(opt, model.generator)[0])
+        torch.cuda.synchronize()
+        setup_ms = (time.perf_counter() - t0) * 1e3
+
+        def file_ms(batch):
+            """Each file's ms through ``_process_file`` at ``batch``."""
+            opt.batchSize, out = batch, {}
+            for name in names:
+                t0 = time.perf_counter()
+                generate_cli._process_file(str(wavs / f"{name}.wav"), opt, model.transform.cfg,
+                                           model)
+                torch.cuda.synchronize()
+                out[name] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        per_file = file_ms(bs)
+        # read, not asserted: the same files at api.upsample's batch, where
+        # each file pads to 8 segments, not 16
+        per_file_8 = file_ms(MAIN_BATCH)
+        audio_s = sum(GENERATE_SECONDS)
+        emit({"timing": {"name": "generate_batch_mode", "card": smi, "files": len(names),
+                         "audio_s": audio_s, "batch": bs, "wall_ms": wall_ms,
+                         "ms_per_audio_s": wall_ms / audio_s,
+                         "files_per_s": len(names) / wall_ms * 1e3,
+                         "max_memory_allocated_bytes": peak,
+                         "setup_ms": setup_ms, "file_ms": per_file,
+                         "files_ms_per_audio_s": sum(per_file.values()) / audio_s,
+                         f"file_ms_batch{MAIN_BATCH}": per_file_8,
+                         "phase_s": time.perf_counter() - t_phase}})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -633,6 +820,9 @@ def drive() -> int:
     # 8. training ------------------------------------------------------------
     train_launches = train_phase(rng, smi, dev)
 
+    # 9. the generate entry point ----------------------------------------------
+    generate_launches = generate_phase(rng, smi, dev)
+
     replaces = {
         "mdct_spectro": "mdctgan_tpu/ops/pallas_mdct.py:80",
         "imdct_audio": "mdctgan_tpu/ops/pallas_mdct.py:185",
@@ -642,6 +832,7 @@ def drive() -> int:
          "source": f"mdctgan_tpu_torch/csrc/{name.removesuffix('_dense')}.cu",
          "replaces": replaces[name.removesuffix("_dense")],
          "launches": launches[name], "train_launches": train_launches[name],
+         "generate_launches": generate_launches[name],
          "max_abs_err": errs[name],
          **{k: rows[(name, MAIN_BATCH)][k]
             for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",

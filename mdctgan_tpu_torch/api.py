@@ -1,7 +1,9 @@
-"""High-level serving API: ``create_model`` and the one-call ``upsample``."""
+"""High-level serving API: ``create_model``, the segment loop that every
+serving caller shares (``serve_segments``) and the one-call ``upsample``."""
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable, Mapping, Optional
 
@@ -14,9 +16,13 @@ from mdctgan_tpu_torch.device import float32_policy, resolve_device
 from mdctgan_tpu_torch.models.generator import build_generator
 from mdctgan_tpu_torch.ops.features import SpectralTransform
 from mdctgan_tpu_torch.ops.resample import degrade_lr, resample
-from mdctgan_tpu_torch.options import spectral_config_from_opt
+from mdctgan_tpu_torch.options import as_dict, spectral_config_from_opt
 from mdctgan_tpu_torch.train.step import build_inference_fn
 from mdctgan_tpu_torch.weights import init_weights
+
+# Segment batches in flight in ``serve_segments``: batch i's copy to the
+# host overlaps batch i+1's compute, and no more is held.
+IN_FLIGHT = 2
 
 
 @dataclasses.dataclass
@@ -31,15 +37,17 @@ class Model:
 
 
 def create_model(
-    opt: Mapping,
+    opt,
     device="cuda",
     state_dict: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> Model:
-    """Inference model from an options dict.  Weights come from
-    ``state_dict`` (strict load; see ``weights.state_dict_from_jax``) or,
-    without one, from the reference initialisation seeded by ``opt["seed"]``.
-    Raises when ``device`` is CUDA and CUDA is absent."""
+    """Inference model from an options dict or a parsed namespace.  Weights
+    come from ``state_dict`` (strict load; see ``weights.state_dict_from_jax``
+    and ``train/restore.py``) or, without one, from the reference
+    initialisation seeded by ``opt["seed"]``.  Raises when ``device`` is
+    CUDA and CUDA is absent."""
     dev = resolve_device(device)
+    opt = as_dict(opt)
     cfg = spectral_config_from_opt(opt)
     transform = SpectralTransform(cfg, dev)
     generator = build_generator(opt)
@@ -52,6 +60,50 @@ def create_model(
     return Model(generator, transform, infer, dev)
 
 
+def serve_segments(model: Model, segments: np.ndarray, batch_size: int) -> np.ndarray:
+    """(N, segment_length) LR segments -> (N, segment_length) SR segments,
+    through ``model.inference`` in batches of ``batch_size`` (the last one
+    zero-padded).  On the card each batch goes up from pinned memory and
+    comes back into pinned memory without blocking, with one event; the
+    host waits for batch i's event only after batch i+1 is enqueued, so at
+    most ``IN_FLIGHT`` batches are held and the copy of one overlaps the
+    compute of the next.  The result is that of a synchronous loop."""
+    seg = model.transform.cfg.segment_length
+    n = len(segments)
+    n_pad = (-n) % batch_size
+    if n_pad:
+        segments = np.concatenate([segments, np.zeros((n_pad, seg), np.float32)])
+    segments = np.ascontiguousarray(segments, np.float32)
+    out = np.empty((len(segments), seg), np.float32)
+    on_card = model.device.type == "cuda"
+    pending = collections.deque()
+
+    def drain_one():
+        i, host, done = pending.popleft()
+        if done is not None:
+            done.synchronize()
+        out[i : i + batch_size] = host.numpy()
+
+    for i in range(0, len(segments), batch_size):
+        x = torch.from_numpy(segments[i : i + batch_size])
+        if on_card:
+            x = x.pin_memory().to(model.device, non_blocking=True)
+        _, sr_audio = model.inference(x)
+        if on_card:
+            host = torch.empty(sr_audio.shape, dtype=sr_audio.dtype, pin_memory=True)
+            host.copy_(sr_audio, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        else:
+            host, done = sr_audio, None
+        pending.append((i, host, done))
+        if len(pending) == IN_FLIGHT:
+            drain_one()
+    while pending:
+        drain_one()
+    return out[:n]
+
+
 def upsample(
     audio: np.ndarray,
     sample_rate: int,
@@ -62,7 +114,7 @@ def upsample(
 ) -> np.ndarray:
     """Super-resolve an in-memory waveform: degrade it (or only resample it
     to the HR rate if ``is_lr_input``), segment, infer in batches of
-    ``batch_size`` (the last one zero-padded), stitch, and crop to the input's
+    ``batch_size`` (``serve_segments``), stitch, and crop to the input's
     duration at the HR rate."""
     cfg = model.transform.cfg
     ds = AudioAppDataset(audio, sample_rate, cfg.segment_length, gen_overlap)
@@ -72,17 +124,6 @@ def upsample(
             lr = resample(raw, sample_rate, cfg.hr_sampling_rate)
         else:
             lr = degrade_lr(raw, sample_rate, cfg.lr_sampling_rate, cfg.hr_sampling_rate)
-    segments = ds.segments_of(lr[0].cpu().numpy())
-    n = len(segments)
-    n_pad = (-n) % batch_size
-    if n_pad:
-        segments = np.concatenate(
-            [segments, np.zeros((n_pad, cfg.segment_length), np.float32)])
-    outs = []
-    for i in range(0, len(segments), batch_size):
-        x = torch.from_numpy(segments[i : i + batch_size]).to(model.device)
-        _, sr_audio = model.inference(x)
-        outs.append(sr_audio[..., : cfg.segment_length].cpu().numpy())
-    sr_segments = np.concatenate(outs)[:n]
+    sr_segments = serve_segments(model, ds.segments_of(lr[0].cpu().numpy()), batch_size)
     out_len = int(round(len(ds.raw_audio) * cfg.hr_sampling_rate / sample_rate))
     return ds.stitch(sr_segments)[:out_len]

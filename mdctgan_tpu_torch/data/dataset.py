@@ -1,22 +1,109 @@
-"""In-memory clip segmentation and stitching (the serving side of
-``mdctgan_tpu/data/dataset.py``; file reading is not ported)."""
+"""Audio file lists, whole-file test datasets, segmentation and stitching:
+the serving side of ``mdctgan_tpu/data/dataset.py`` (the random-crop train
+dataset belongs to the input pipeline, which is not ported)."""
 
 from __future__ import annotations
 
+import csv
+import os
+from typing import List, Optional, Tuple
+
 import numpy as np
 
+from mdctgan_tpu_torch.data import native
 
-class AudioAppDataset:
-    """A waveform array and its sample rate -> overlapped fixed-length
-    segments, and back.  No DC shift (the reference's in-memory dataset has
-    none)."""
+# decoded by the library's own readers, always (AIFF is big-endian PCM)
+AUDIO_EXTS = (".wav", ".flac", ".aiff", ".aif")
+# decoded through system libraries when the library finds them:
+# (extensions, probe on ``native``, library name for the hint)
+_OPTIONAL_DECODERS = (
+    ((".mp3",), "has_mp3", "libmpg123"),
+    ((".ogg",), "has_vorbis", "libvorbisfile"),
+    ((".opus",), "has_opus", "libopus+libogg"),
+    ((".m4a", ".aac", ".wma"), "has_ffmpeg", "ffmpeg 5.x libraries"),
+)
+# formats the reference decodes that this host may not: each is rejected
+# up front, with a hint, when its system library is absent
+UNSUPPORTED_AUDIO_EXTS = (".mp3", ".ogg", ".opus", ".m4a", ".aac", ".wma")
 
-    def __init__(self, audio: np.ndarray, sample_rate: int, segment_length: int,
-                 overlap: int = 0):
+
+def supported_exts() -> Tuple[str, ...]:
+    """The extensions this host decodes."""
+    exts = AUDIO_EXTS
+    for opt_exts, probe, _ in _OPTIONAL_DECODERS:
+        if getattr(native, probe)():
+            exts = exts + opt_exts
+    return exts
+
+
+def unsupported_note(files: List[str]) -> str:
+    """': found N .ogg (+...) files — not decodable (convert to WAV/FLAC)'
+    when ``files`` holds formats this host cannot decode, else ''."""
+    supported = supported_exts()
+    counts: dict = {}
+    for f in files:
+        ext = os.path.splitext(f)[1].lower()
+        if ext in UNSUPPORTED_AUDIO_EXTS and ext not in supported:
+            counts[ext] = counts.get(ext, 0) + 1
+    if not counts:
+        return ""
+    parts = ", ".join(f"{n} {e}" for e, n in sorted(counts.items()))
+    hint = " (convert to WAV or FLAC"
+    for opt_exts, _, lib in _OPTIONAL_DECODERS:
+        if any(e in counts for e in opt_exts):
+            hint += f"; {'/'.join(opt_exts)} needs the system {lib}"
+    hint += ")"
+    return (f": found {parts} file(s) — these formats are not decodable "
+            f"by this framework{hint}")
+
+
+def list_audio_files(path: str, max_files: Optional[int] = None) -> List[str]:
+    """A CSV index (one path per cell, relative to the CSV's directory) or a
+    recursive directory walk, sorted."""
+    if os.path.isdir(path):
+        supported = supported_exts()
+        files, skipped = [], []
+        for root, _, names in os.walk(path):
+            for name in sorted(names):
+                ext = os.path.splitext(name)[1].lower()
+                if ext in supported:
+                    files.append(os.path.join(root, name))
+                elif ext in UNSUPPORTED_AUDIO_EXTS:
+                    skipped.append(name)
+        files.sort()
+        if not files and skipped:
+            raise FileNotFoundError(
+                f"no decodable audio files under {path}" + unsupported_note(skipped))
+        if skipped:
+            print(f"[data] skipping {len(skipped)} unsupported audio "
+                  f"file(s) under {path}{unsupported_note(skipped)}", flush=True)
+    else:
+        root = os.path.dirname(path)
+        with open(path, "r") as f:
+            files = [os.path.join(root, item) for row in csv.reader(f)
+                     for item in row if item]
+    if max_files is not None:
+        files = files[: int(max_files)]
+    if not files:
+        raise FileNotFoundError(f"no audio files found under {path}")
+    return files
+
+
+class AudioTestDataset:
+    """One file, read whole and DC-shifted by ``1e-4 - mean``, cut into
+    overlapped fixed-length segments and stitched back."""
+
+    def __init__(self, path: str, segment_length: int, overlap: int = 0):
+        raw, sr = native.read(path)
+        self._init_from_array(raw, sr, segment_length, overlap)
+
+    def _init_from_array(self, raw: np.ndarray, sr: int, segment_length: int,
+                         overlap: int, dc_shift: bool = True) -> None:
         self.segment_length = int(segment_length)
         self.overlap = int(overlap)
-        self.in_sampling_rate = sample_rate
-        self.raw_audio = np.asarray(audio, np.float32).reshape(-1)
+        self.in_sampling_rate = sr
+        raw = np.asarray(raw, np.float32).reshape(-1)
+        self.raw_audio = raw + (1e-4 - raw.mean()) if dc_shift else raw
         self.audio_len = len(self.raw_audio)
         self._short_segmented = None
 
@@ -47,6 +134,16 @@ class AudioAppDataset:
             return np.asarray(segments).reshape(-1)
         return overlap_add_segments(
             np.asarray(segments), self.segment_length, self.overlap)
+
+
+class AudioAppDataset(AudioTestDataset):
+    """A waveform array and its sample rate in place of a file; no DC shift
+    (the reference's in-memory dataset has none)."""
+
+    def __init__(self, audio: np.ndarray, sample_rate: int, segment_length: int,
+                 overlap: int = 0):
+        self._init_from_array(audio, sample_rate, segment_length, overlap,
+                              dc_shift=False)
 
 
 def overlap_add_segments(segments: np.ndarray, segment_length: int,

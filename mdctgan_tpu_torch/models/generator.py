@@ -11,9 +11,10 @@ here is per sample).
 
 Ported: ``GlobalGenerator`` (with and without its 7x7 tanh head) and
 ``LocalEnhancer`` with one enhancer branch, with the ``conv``/``resconv``
-downsample and the ``interpolate`` upsample.  Not ported yet (they raise
-``NotImplementedError``): the ``transconv`` upsample, local attention
-(``n_attn_local > 0``) and ``n_local_enhancers > 1``.
+downsample and the ``interpolate``/``transconv`` upsample.  Not ported yet
+(they raise ``NotImplementedError``): local attention (``n_attn_local > 0``)
+and ``n_local_enhancers > 1``.  Each generator keeps its configuration as
+attributes, which ``train/import_torch.generator_entries_for`` reads.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from mdctgan_tpu_torch.models.attention import BottleStack
 from mdctgan_tpu_torch.models.layers import (
     Conv,
     ConvResBlock,
+    ConvTransposed,
     InterpolateUpsample,
     ResnetBlock,
     avg_pool_3x3_s2,
@@ -44,9 +46,11 @@ def _downsample_layer(kind: str, in_f: int, out_f: int) -> nn.Module:
 
 
 def _upsample_layer(kind: str, in_f: int, out_f: int) -> nn.Module:
+    if kind == "transconv":
+        return ConvTransposed(in_f, out_f)
     if kind == "interpolate":
         return InterpolateUpsample(in_f, out_f)
-    raise NotImplementedError(f"upsample layer [{kind}] is not ported")
+    raise NotImplementedError(f"upsample layer [{kind}] is not found")
 
 
 class GlobalGenerator(nn.Module):
@@ -70,7 +74,8 @@ class GlobalGenerator(nn.Module):
         include_head: bool = True,
     ):
         super().__init__()
-        self.n_downsampling, self.n_blocks = n_downsampling, n_blocks
+        self.n_downsampling, self.n_blocks, self.n_attn = n_downsampling, n_blocks, n_attn
+        self.downsample_type, self.upsample_type = downsample_type, upsample_type
         self.include_head = include_head
         self.stem = Conv(input_nc, ngf, 7)
         for i in range(n_downsampling):
@@ -95,6 +100,19 @@ class GlobalGenerator(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.features(x, sample_mask)
+        if not self.include_head:
+            return h
+        return torch.tanh(self.head(reflect_pad(h, 3)))
+
+    def logits(self, x: torch.Tensor,
+               sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The output before its tanh (``include_head`` only)."""
+        return self.head(reflect_pad(self.features(x, sample_mask), 3))
+
+    def features(self, x: torch.Tensor,
+                 sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The ngf-channel map after the last upsample stage."""
         h = instance_norm_relu(self.stem(reflect_pad(x, 3)))
         for i in range(self.n_downsampling):
             h = instance_norm_relu(getattr(self, f"down{i}")(h))
@@ -107,9 +125,7 @@ class GlobalGenerator(nn.Module):
             h = self.attn(h, sample_mask)
         for i in range(self.n_downsampling):
             h = instance_norm_relu(getattr(self, f"up{i}")(h))
-        if not self.include_head:
-            return h
-        return torch.tanh(self.head(reflect_pad(h, 3)))
+        return h
 
 
 class LocalEnhancer(nn.Module):
@@ -140,6 +156,10 @@ class LocalEnhancer(nn.Module):
             raise NotImplementedError("n_local_enhancers != 1 is not ported")
         if n_attn_local > 0:
             raise NotImplementedError("local attention (n_attn_local > 0) is not ported")
+        self.n_downsample_global, self.n_blocks_global = n_downsample_global, n_blocks_global
+        self.n_attn_global, self.n_attn_local = n_attn_global, n_attn_local
+        self.n_local_enhancers = n_local_enhancers
+        self.downsample_type, self.upsample_type = downsample_type, upsample_type
         ngf_l = ngf
         self.add_module("global", GlobalGenerator(
             input_nc, output_nc, ngf * 2, n_downsample_global, n_blocks_global,
@@ -174,10 +194,10 @@ class LocalEnhancer(nn.Module):
         return torch.tanh(self.logits(x, sample_mask))
 
 
-def build_generator(opt: Mapping) -> nn.Module:
-    """Generator from an options dict (keys and defaults of the reference
-    ``build_generator``)."""
-    get = opt.get
+def build_generator(opt) -> nn.Module:
+    """Generator from an options dict or a parsed namespace (keys and
+    defaults of the reference ``build_generator``)."""
+    get = (opt if isinstance(opt, Mapping) else vars(opt)).get
     input_size = (get("bins", 128), get("n_fft", 512) // 2)
     kind = get("netG", "global")
     common = dict(

@@ -1,8 +1,9 @@
 """Building-block layers (NCHW).
 
 The port of ``mdctgan_tpu/models/layers.py`` in the reference's own form:
-the upsample is nearest 2x followed by the convolution, and the 7x7 output
-head is a plain convolution.  The JAX package's dilated, polyphase and phase
+the interpolate upsample is nearest 2x followed by the convolution, the
+transconv upsample is one ``nn.ConvTranspose2d``, and the 7x7 output head is
+a plain convolution.  The JAX package's dilated, polyphase and phase
 forms compute the same math restructured for the TPU and are not carried
 over.
 
@@ -59,6 +60,21 @@ class Conv(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(in_features, features, kernel, stride, padding,
                               bias=use_bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class ConvTransposed(nn.Module):
+    """ConvTranspose2d(k=3, s=2, p=1, output_padding=1), held as child
+    ``conv``: doubles H and W.  Its weight is torch's (I, O, kH, kW), which
+    the Flax ``transpose_kernel=True`` kernel (kH, kW, O, I) carries to with
+    the conv transpose of ``weights.state_dict_from_jax`` and no flip."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.conv = nn.ConvTranspose2d(in_features, features, 3, 2, 1,
+                                       output_padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)

@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from mdctgan_tpu_torch.device import resolve_device
 from mdctgan_tpu_torch.ops import mdct_kernels
 
 
@@ -71,13 +72,17 @@ def _unported(cfg: SpectralConfig) -> Optional[str]:
 
 
 class SpectralTransform:
-    """The MDCT/IMDCT matrices on one device plus the normalisation config."""
+    """The MDCT/IMDCT matrices on one device plus the normalisation config.
+    ``device`` defaults to the card and raises without CUDA
+    (``device.resolve_device``); only an explicit ``"cpu"`` runs the plain
+    versions."""
 
-    def __init__(self, cfg: SpectralConfig, device="cpu", dtype=torch.float32):
+    def __init__(self, cfg: SpectralConfig, device="cuda", dtype=torch.float32):
         what = _unported(cfg)
         if what is not None:
             raise NotImplementedError(f"SpectralTransform: {what} is not ported")
         mdct_kernels.check_geometry(cfg.n_fft, cfg.hop_length, cfg.win_length)
+        device = resolve_device(device)
         self.cfg = cfg
         self.spectro_mat = mdct_kernels.spectro_matrix(cfg.n_fft, device, dtype)
         self.synth_mat = mdct_kernels.synth_matrix(cfg.n_fft, device, dtype)

@@ -1,4 +1,5 @@
-"""Polyphase windowed-sinc resampling as one strided ``conv1d``.
+"""Polyphase windowed-sinc resampling as one strided ``conv1d``, and the
+SNR-calibrated noise and fixed length of the reference's degradation.
 
 The kernels are built on the host in float64 (torchaudio's
 ``sinc_interp_hann`` design: lowpass_filter_width 6, rolloff 0.99, Hann^2
@@ -69,3 +70,32 @@ def degrade_lr(waveform: torch.Tensor, orig_freq: int, lr_freq: int,
                hr_freq: int) -> torch.Tensor:
     """orig -> lr -> hr: the band-limited LR waveform at the HR rate."""
     return resample(resample(waveform, orig_freq, lr_freq), lr_freq, hr_freq)
+
+
+def scale_noise_to_snr(waveform: torch.Tensor, noise: torch.Tensor, snr_db: float,
+                       segment_length: int) -> torch.Tensor:
+    """``waveform`` plus ``noise`` (same shape), centred and scaled per row
+    so that the row's power over ``segment_length`` samples sits ``snr_db``
+    above it (the reference's SNR-calibrated noise)."""
+    noise = noise - noise.mean(dim=-1, keepdim=True)
+    signal_power = waveform.square().sum(dim=-1, keepdim=True) / segment_length
+    noise_var = signal_power / (10.0 ** (snr_db / 10.0))
+    std = noise.std(dim=-1, keepdim=True, correction=0)
+    return waveform + torch.sqrt(noise_var) / std * noise
+
+
+def add_noise_snr(waveform: torch.Tensor, snr_db: float, segment_length: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """``scale_noise_to_snr`` of standard normal noise drawn on the CPU from
+    ``generator`` (so the card and the CPU add the same noise); the draw is
+    PyTorch's, not ``jax.random``'s."""
+    noise = torch.randn(waveform.shape, generator=generator, dtype=waveform.dtype)
+    return scale_noise_to_snr(waveform, noise.to(waveform.device), snr_db, segment_length)
+
+
+def fix_length(waveform: torch.Tensor, length: int) -> torch.Tensor:
+    """Crop or zero-pad the last axis to ``length``."""
+    t = waveform.shape[-1]
+    if t >= length:
+        return waveform[..., :length]
+    return F.pad(waveform, (0, length - t))

@@ -5,6 +5,7 @@ generator and the discriminator alike, so the carry from ``{"params",
 "batch_stats"}`` is a rename plus a transpose:
 
     conv ``kernel`` (kH, kW, I, O)    -> ``weight`` (O, I, kH, kW)
+    transposed conv ``kernel`` (kH, kW, O, I) -> ``weight`` (I, O, kH, kW)
     BatchNorm ``scale`` / ``bias``     -> ``weight`` / ``bias``
     batch_stats ``mean`` / ``var``     -> ``running_mean`` / ``running_var``
     ``pos_emb`` ``height`` / ``width`` -> unchanged
@@ -83,11 +84,11 @@ def random_jax_trees(module: nn.Module, rng: np.random.Generator):
 @torch.no_grad()
 def init_weights(module: nn.Module, gen: torch.Generator) -> None:
     """The reference initialisation, drawn from ``gen``, of a generator or a
-    discriminator: conv weights N(0, 0.02) and zero biases, BatchNorm
-    weights N(1, 0.02) and zero biases with running statistics (0, 1),
-    positional embeddings N(0, dim_head**-0.5)."""
+    discriminator: conv and transposed-conv weights N(0, 0.02) and zero
+    biases, BatchNorm weights N(1, 0.02) and zero biases with running
+    statistics (0, 1), positional embeddings N(0, dim_head**-0.5)."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * 0.02)
             if m.bias is not None:
                 m.bias.zero_()

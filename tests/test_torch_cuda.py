@@ -5,18 +5,23 @@ package, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import csv
+import functools
+import math
+import wave
+
 import numpy as np
 import pytest
 import torch
 
-import functools
-
-from mdctgan_tpu_torch import api
+from mdctgan_tpu_torch import api, generate_cli
+from mdctgan_tpu_torch.data import native
 from mdctgan_tpu_torch.models.discriminator import build_discriminator
 from mdctgan_tpu_torch.models.generator import build_generator
 from mdctgan_tpu_torch.ops import mdct_kernels as K
 from mdctgan_tpu_torch.ops.features import SpectralTransform
-from mdctgan_tpu_torch.options import spectral_config_from_opt
+from mdctgan_tpu_torch.options import TrainOptions, spectral_config_from_opt
+from mdctgan_tpu_torch.train.import_torch import export_to_torch_keys, generator_entries_for
 from mdctgan_tpu_torch.train.schedule import OptimizerSpec
 from mdctgan_tpu_torch.train.state import create_train_state
 from mdctgan_tpu_torch.train.step import build_train_step
@@ -176,3 +181,54 @@ def test_small_train_step_on_card_matches_cpu(cuda):
         ref_grad, got_grad = before[k] - ref, before[k] - card_after[k]
         err = float((got_grad - ref_grad).norm())
         assert err <= 2e-3 * float(ref_grad.norm()) + 5e-5, k
+
+
+@pytest.mark.cuda
+def test_small_generate_cli_on_card_matches_cpu(cuda, tmp_path):
+    """The generate CLI in batch mode at small geometry (``netG global``,
+    transconv up) on the card and on the CPU from one reference-layout
+    ``.pth``: the SR WAVs within 2e-3 of their largest value, LSD 1e-3
+    relative, each SNR 0.01 dB; K1 and K2 launched once per batch each."""
+    flags = ["--lr_sampling_rate", "16000", "--center", "--arcsinh_transform",
+             "--abs_spectro", "--abs_norm", "--norm_range", "-1", "1", "--fit_residual",
+             "--netG", "global", "--ngf", "4", "--n_downsample_global", "2",
+             "--n_blocks_global", "1", "--n_blocks_attn_g", "1", "--heads_g", "2",
+             "--dim_head_g", "4", "--segment_length", "8128", "--n_fft", "128",
+             "--hop_length", "64", "--win_length", "128", "--bins", "128",
+             "--batchSize", "2", "--checkpoints_dir", str(tmp_path / "out")]
+    rng = np.random.default_rng(3)
+    gen = build_generator(TrainOptions().parse(flags, save=False))
+    state = state_dict_from_jax(*random_jax_trees(gen, rng))
+    state["head.conv.weight"] *= 0.01  # SR within full scale, as a trained model's
+    (tmp_path / "pre").mkdir()
+    torch.save(export_to_torch_keys(state, generator_entries_for(gen)),
+               tmp_path / "pre" / "latest_net_G.pth")
+    (tmp_path / "wavs").mkdir()
+    lengths = (14000, 20000, 30000)
+    for i, n in enumerate(lengths):
+        native.write_wav16(str(tmp_path / "wavs" / f"s{i}.wav"),
+                           (0.1 * rng.standard_normal(n)).astype(np.float32), 48000)
+    common = flags + ["--dataroot", str(tmp_path / "wavs"),
+                      "--load_pretrain", str(tmp_path / "pre")]
+    K.reset_launch_counts()
+    card = generate_cli.main(common + ["--name", "card", "--gpu_ids", "0"])
+    launches = dict(K.LAUNCHES)
+    cpu = generate_cli.main(common + ["--name", "cpu", "--gpu_ids", "-1"])
+    batches = sum(math.ceil(math.ceil(n / 8128) / 2) for n in lengths)
+    assert launches == {"mdct_spectro": batches, "imdct_audio": batches,
+                        "mdct_spectro_dense": 0, "imdct_audio_dense": 0}
+    assert card["rungs"] == cpu["rungs"] == []
+    for got, ref in zip(card["rows"], cpu["rows"]):
+        assert got["output"] == ref["output"]
+        for k in ("snr_sr", "snr_lr", "snr_seg"):
+            assert abs(got[k] - ref[k]) <= 0.01, k
+        assert abs(got["lsd"] - ref["lsd"]) <= 1e-3 * ref["lsd"]
+        assert abs(got["mse"] - ref["mse"]) <= 1e-2 * ref["mse"]
+        wavs = []
+        for side in ("card", "cpu"):
+            with wave.open(str(tmp_path / "out" / side / got["output"])) as w:
+                wavs.append(np.frombuffer(w.readframes(w.getnframes()), "<i2") / 32768.0)
+        assert wavs[0].shape == wavs[1].shape
+        assert float(np.abs(wavs[0] - wavs[1]).max()) <= 2e-3 * float(np.abs(wavs[1]).max())
+    with open(tmp_path / "out" / "card" / "metrics.csv") as f:
+        assert [r["file"] for r in csv.DictReader(f)][-1] == "MEAN"

@@ -77,7 +77,7 @@ def test_to_spectro_matches_unfused_reference(rng, n_fft, t):
     x = (0.1 * rng.standard_normal((2, t))).astype(np.float32)
     jt = jfeat.SpectralTransform(jfeat.SpectralConfig(**cfg), use_fused=False)
     ref, _, ref_np = jt.to_spectro(jnp.asarray(x))
-    tt = tfeat.SpectralTransform(tfeat.SpectralConfig(**cfg))
+    tt = tfeat.SpectralTransform(tfeat.SpectralConfig(**cfg), "cpu")
     got, got_np = tt.to_spectro(torch.from_numpy(x))
     assert got.shape == ref.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)
@@ -88,7 +88,7 @@ def test_normalize_denormalize_match_reference(rng):
     cfg = _cfg(128, 8128)
     spec = (0.05 * rng.standard_normal((2, 1, 16, 64))).astype(np.float32)
     jt = jfeat.SpectralTransform(jfeat.SpectralConfig(**cfg), use_fused=False)
-    tt = tfeat.SpectralTransform(tfeat.SpectralConfig(**cfg))
+    tt = tfeat.SpectralTransform(tfeat.SpectralConfig(**cfg), "cpu")
     ref, ref_np = jt.normalize(jnp.asarray(spec))
     got, got_np = tt.normalize(torch.from_numpy(spec))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
@@ -104,12 +104,12 @@ def test_geometry_and_config_rejections():
     with pytest.raises(NotImplementedError):
         K.check_geometry(512, 128, 512)
     with pytest.raises(NotImplementedError):
-        tfeat.SpectralTransform(tfeat.SpectralConfig(hop_length=128))
+        tfeat.SpectralTransform(tfeat.SpectralConfig(hop_length=128), "cpu")
     for bad in (dict(raw_mdct=True), dict(explicit_encoding=True),
                 dict(arcsinh_transform=False), dict(abs_norm=False),
                 dict(mask=True)):
         with pytest.raises(NotImplementedError):
-            tfeat.SpectralTransform(tfeat.SpectralConfig(**bad))
+            tfeat.SpectralTransform(tfeat.SpectralConfig(**bad), "cpu")
 
 
 @pytest.mark.parametrize("n_fft,frames", [(128, 128), (512, 128)])
@@ -128,7 +128,7 @@ def test_k2_plain_matches_pallas_and_unfused(rng, n_fft, frames):
 
     cfg = _cfg(n_fft, (frames - 1) * n_fft // 2)
     jt = jfeat.SpectralTransform(jfeat.SpectralConfig(**cfg), use_fused=False)
-    tt = tfeat.SpectralTransform(tfeat.SpectralConfig(**cfg))
+    tt = tfeat.SpectralTransform(tfeat.SpectralConfig(**cfg), "cpu")
     lo, hi = tt.cfg.src_range
     ref_np = {"min": jnp.full((1, 1, 1, 1), lo), "max": jnp.full((1, 1, 1, 1), hi)}
     ref = np.asarray(jt.to_audio(jnp.asarray(y[:, None]), ref_np))

@@ -146,7 +146,7 @@ def test_flagship_local_enhancer_matches_flax(rng):
 
 def test_unported_generator_options_raise():
     with pytest.raises(NotImplementedError):
-        tgen.build_generator(dict(SMALL_LOCAL, netG="local", upsample_type="transconv"))
+        tgen.build_generator(dict(SMALL_LOCAL, netG="local", upsample_type="pixelshuffle"))
     with pytest.raises(NotImplementedError):
         tgen.build_generator(dict(netG="local", n_blocks_attn_l=1,
                                   upsample_type="interpolate"))

@@ -70,7 +70,7 @@ def test_build_inference_fn_matches_jax(rng):
 
     gen = LocalEnhancer(**GEN)
     gen.load_state_dict(sd, strict=True)
-    infer = build_inference_fn(gen.eval(), SpectralTransform(SpectralConfig(**SPECTRAL)),
+    infer = build_inference_fn(gen.eval(), SpectralTransform(SpectralConfig(**SPECTRAL), "cpu"),
                                out_length=seg)
     sr, audio = infer(torch.from_numpy(lr))
     assert sr.shape == ref_sr.shape and audio.shape == ref_audio.shape == (3, seg)
@@ -188,7 +188,7 @@ def test_train_step_leaves_jax_unimported():
         "g_tx, d_tx = make_optimizers(2e-4, 0.5, 1, 1, 10)\n"
         "state = create_train_state(build_generator(opt), build_discriminator(opt), g_tx,\n"
         "                           d_tx, device='cpu', rng=torch.Generator().manual_seed(0))\n"
-        "step = build_train_step(SpectralTransform(spectral_config_from_opt(opt)), g_tx, d_tx,\n"
+        "step = build_train_step(SpectralTransform(spectral_config_from_opt(opt), 'cpu'), g_tx, d_tx,\n"
         "                        n_layers_d=2, num_d=2)\n"
         "x = torch.from_numpy(0.1 * np.random.default_rng(0).standard_normal((2, 8128)))\n"
         "state, m = step(state, {'lr_audio': x.float(), 'hr_audio': x.float()})\n"
@@ -206,6 +206,15 @@ def test_create_model_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tapi.create_model(OPT)
+
+
+def test_spectral_transform_without_cuda_raises(monkeypatch):
+    """The transform a caller hands to ``build_train_step`` is an entry
+    point too: its default is the card, never a silent CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SpectralTransform(SpectralConfig(**SPECTRAL))
+    assert SpectralTransform(SpectralConfig(**SPECTRAL), "cpu").spectro_mat.device.type == "cpu"
 
 
 @pytest.mark.parametrize("caller_allows_tf32", [True, False])

@@ -149,7 +149,7 @@ def _port_state(env, g_tx=SGD, d_tx=SGD):
 
 
 def _port_step(env, g_tx=SGD, d_tx=SGD, use_pool=False):
-    return build_train_step(SpectralTransform(SpectralConfig(**SPECTRAL)), g_tx, d_tx,
+    return build_train_step(SpectralTransform(SpectralConfig(**SPECTRAL), "cpu"), g_tx, d_tx,
                             n_layers_d=D_CFG["n_layers"], num_d=D_CFG["num_D"],
                             use_pool=use_pool)
 
@@ -528,7 +528,7 @@ def test_shared_spectra_and_slack():
     from mdctgan_tpu_torch.train import grad_truth
 
     cfg = SpectralConfig(**SPECTRAL)
-    f32 = SpectralTransform(cfg)
+    f32 = SpectralTransform(cfg, "cpu")
     shared = grad_truth.SharedSpectra(SpectralTransform(cfg, "cpu", torch.float64), f32)
     audio = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 1984)))
     for name in ("lr_forward", "hr_forward"):
