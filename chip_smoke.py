@@ -11,8 +11,9 @@ Phases (none catches an exception; any failure exits non-zero):
      source, all started together);
   3. K1 (MDCT + arcsinh + affine) against its plain PyTorch version on the
      card, normalized and raw, in float64 and in float32: the FFT form at
-     n_fft 512 (T in {32512, 32000}, batches 1/8/20) and at n_fft 64, 128
-     and 2048 (batch 2), and the dense form at n_fft 480 (batch 2).  The
+     n_fft 512 (T in {32512, 32000}, batch 1 and each main path's batch:
+     8 serving, 16 generate, 20 train) and at n_fft 64, 128 and 2048
+     (batch 2), and the dense form at n_fft 480 (batch 2).  The
      normalized f32 check runs on noise near full scale: on unit-variance
      noise the f32 plain version is itself ~5e-4 off float64;
   4. K2 (denormalize + IMDCT + overlap-add) the same way, and a K1 -> K2
@@ -24,8 +25,9 @@ Phases (none catches an exception; any failure exits non-zero):
      launch counts of every kernel read around them (the FFT forms must
      launch, the dense forms must not), and one request compared with the
      port on the CPU;
-  7. timings at batches 8 and 20 of each kernel (FFT and dense forms at
-     n_fft 512), its plain version and a library matmul yardstick: as
+  7. timings at each main path's batch (8, 16, 20) of each kernel (FFT
+     and dense forms at n_fft 512), its plain version and a library matmul
+     yardstick: as
      CUDA-graph replays timed by CUDA events (``ms``), as eager calls
      (``eager_ms``, which add the host's launch cost) and, for the
      kernels, as device time from ``torch.profiler`` (``device_ms``),
@@ -58,12 +60,16 @@ Phases (none catches an exception; any failure exits non-zero):
      within 2e-3 of its largest value, LSD 1e-3 relative, each SNR 0.01 dB,
      MSE 1e-2 relative; the JAX package's default generator (``netG global``,
      transconv up) at batch 2 on the card against the CPU, within 5e-4 with a
-     TF32 control reading; the batch-mode run timed after a warm-up file.
+     TF32 control reading; the batch-mode run timed after a warm-up file,
+     split into its set-up and each file by ``main`` itself; a second run
+     at batch 8 (read); a 60 s file (6 batches) with ``api.IN_FLIGHT`` 1
+     (a synchronous loop) and 2, alternated, whose SR must be identical.
 Every result is one JSON line; a ``kernels`` line sums the kernels up
 (``launches`` on the serving path, ``train_launches`` on the train path,
-``generate_launches`` on the generate path) and the last line is
-``{"ok": true, "device": {...}}``.  Without CUDA, or run outside a checkout
-of the repository, it prints no result and exits 2.
+``generate_launches`` on the generate path, and under ``paths`` each
+path's batch, launches and the kernel's numbers at that batch) and the
+last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or run
+outside a checkout of the repository, it prints no result and exits 2.
 """
 
 from __future__ import annotations
@@ -83,8 +89,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-BATCHES = (1, 8, 20)
-TIMED_BATCHES = (8, 20)
 MAIN_BATCH = 8  # api.upsample's batch of segments
 TRAIN_BATCH = 20  # train.sh's batch
 TRAIN_STEPS = 10
@@ -102,7 +106,13 @@ GENERATE_FLAGS = [
     "--fit_residual", "--upsample_type", "interpolate", "--downsample_type", "resconv",
     "--phase", "test",
 ]
+GENERATE_BATCH = int(GENERATE_FLAGS[GENERATE_FLAGS.index("--batchSize") + 1])
 GENERATE_SECONDS = (1.0, 2.2, 3.7)
+LONG_SECONDS = 60.0  # the in-flight reading's file: 6 batches of 16
+# Each main path's batch: phases 3, 4 and 7 check and time every kernel at each.
+PATH_BATCHES = {"serving": MAIN_BATCH, "train": TRAIN_BATCH, "generate": GENERATE_BATCH}
+BATCHES = tuple(sorted({1, *PATH_BATCHES.values()}))
+TIMED_BATCHES = tuple(sorted(set(PATH_BATCHES.values())))
 # Published peaks: float32 FMA rate outside the tensor cores, memory rate.
 PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12)}
 # K1's epilogue and K2's prologue per spectrum value: the gain, asinh or
@@ -428,7 +438,6 @@ def generate_phase(rng, smi: str, dev: torch.device) -> dict:
     from mdctgan_tpu_torch.ops import mdct_kernels as K
     from mdctgan_tpu_torch.options import TrainOptions, defaults
     from mdctgan_tpu_torch.train.import_torch import export_to_torch_keys, generator_entries_for
-    from mdctgan_tpu_torch.train.restore import load_generator_state
     from mdctgan_tpu_torch.weights import random_jax_trees, state_dict_from_jax
 
     t_phase = time.perf_counter()
@@ -529,47 +538,56 @@ def generate_phase(rng, smi: str, dev: torch.device) -> dict:
               "output_max_abs_err": max_err(torch.tanh(card_logits[True]), torch.tanh(cpu_logits))})
         del card_net, cpu_net, card_logits
 
-        # 9.6 the batch-mode run, timed after a warm-up file
+        # 9.6 the batch-mode run, timed after a warm-up file; its set-up and
+        # each file are this run's own, as ``main`` returns them
         run("warmup", tmp / "first.csv", *cuda_id)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        run("timed", wavs, *cuda_id)
+        timed = run("timed", wavs, *cuda_id)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated()
-        # the same run's parts: the model and its weights, then each file
-        opt.gpu_ids, opt.load_pretrain = [dev.index or 0], str(tmp / "pretrained")
-        t0 = time.perf_counter()
-        model = api.create_model(opt, dev)
-        model.generator.load_state_dict(load_generator_state(opt, model.generator)[0])
-        torch.cuda.synchronize()
-        setup_ms = (time.perf_counter() - t0) * 1e3
-
-        def file_ms(batch):
-            """Each file's ms through ``_process_file`` at ``batch``."""
-            opt.batchSize, out = batch, {}
-            for name in names:
-                t0 = time.perf_counter()
-                generate_cli._process_file(str(wavs / f"{name}.wav"), opt, model.transform.cfg,
-                                           model)
-                torch.cuda.synchronize()
-                out[name] = (time.perf_counter() - t0) * 1e3
-            return out
-
-        per_file = file_ms(bs)
-        # read, not asserted: the same files at api.upsample's batch, where
+        per_file = {Path(p).stem: ms for p, ms in timed["file_ms"].items()}
+        # read, not asserted: a second run at api.upsample's batch, where
         # each file pads to 8 segments, not 16
-        per_file_8 = file_ms(MAIN_BATCH)
+        per_file_8 = {Path(p).stem: ms for p, ms in run(
+            "batch8", wavs, *cuda_id, "--batchSize", str(MAIN_BATCH))["file_ms"].items()}
         audio_s = sum(GENERATE_SECONDS)
         emit({"timing": {"name": "generate_batch_mode", "card": smi, "files": len(names),
                          "audio_s": audio_s, "batch": bs, "wall_ms": wall_ms,
                          "ms_per_audio_s": wall_ms / audio_s,
                          "files_per_s": len(names) / wall_ms * 1e3,
                          "max_memory_allocated_bytes": peak,
-                         "setup_ms": setup_ms, "file_ms": per_file,
+                         "setup_ms": timed["setup_ms"], "file_ms": per_file,
+                         "setup_share": timed["setup_ms"] / wall_ms,
                          "files_ms_per_audio_s": sum(per_file.values()) / audio_s,
-                         f"file_ms_batch{MAIN_BATCH}": per_file_8,
+                         f"second_run_file_ms_batch{MAIN_BATCH}": per_file_8}})
+
+        # 9.7 the in-flight window of api.serve_segments: one 60 s file (6
+        # batches of 16) with 1 batch in flight (a synchronous loop) and 2,
+        # alternated; its time is read, its SR must not change
+        long_dir = tmp / "long"
+        long_dir.mkdir()
+        native.write_wav16(str(long_dir / "speech_60s.wav"),
+                           speech_like(rng, LONG_SECONDS, 48000), 48000)
+        window, outputs = {1: [], 2: []}, {}
+        default = api.IN_FLIGHT
+        for n in (1, 2, 2, 1, 1, 2):
+            api.IN_FLIGHT = n
+            r = run(f"in_flight_{n}", long_dir, *cuda_id)
+            window[n].append(next(iter(r["file_ms"].values())))
+            outputs[n] = (native.read(str(Path(r["out_dir"]) / r["rows"][0]["output"]))[0],
+                          {k: r["rows"][0][k] for k in ("mse", "snr_sr", "snr_seg", "lsd")})
+        api.IN_FLIGHT = default
+        check("in-flight window 2 vs 1: SR WAV", float(np.abs(outputs[2][0] - outputs[1][0]).max()),
+              0.0, metrics_equal=outputs[2][1] == outputs[1][1])
+        if outputs[2][1] != outputs[1][1]:
+            raise AssertionError(f"in-flight metrics {outputs[2][1]} != {outputs[1][1]}")
+        med = {n: statistics.median(v) for n, v in window.items()}
+        emit({"timing": {"name": "generate_in_flight", "card": smi, "audio_s": LONG_SECONDS,
+                         "batch": bs, "file_ms": window, "median_ms": med,
+                         "gain_ms": med[1] - med[2], "gain_share": 1.0 - med[2] / med[1],
                          "phase_s": time.perf_counter() - t_phase}})
     return launches
 
@@ -827,6 +845,9 @@ def drive() -> int:
         "mdct_spectro": "mdctgan_tpu/ops/pallas_mdct.py:80",
         "imdct_audio": "mdctgan_tpu/ops/pallas_mdct.py:185",
     }
+    numbers = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    path_launches = {"serving": launches, "train": train_launches,
+                     "generate": generate_launches}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"mdctgan_tpu_torch/csrc/{name.removesuffix('_dense')}.cu",
@@ -834,9 +855,10 @@ def drive() -> int:
          "launches": launches[name], "train_launches": train_launches[name],
          "generate_launches": generate_launches[name],
          "max_abs_err": errs[name],
-         **{k: rows[(name, MAIN_BATCH)][k]
-            for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
-                      "library_ms")}}
+         **{k: rows[(name, MAIN_BATCH)][k] for k in numbers},
+         "paths": {path: {"batch": b, "launches": path_launches[path][name],
+                          **{k: rows[(name, b)][k] for k in numbers}}
+                   for path, b in PATH_BATCHES.items()}}
         for name in ("mdct_spectro", "imdct_audio", "mdct_spectro_dense",
                      "imdct_audio_dense")
     ]})

@@ -20,8 +20,9 @@ from mdctgan_tpu_torch.options import as_dict, spectral_config_from_opt
 from mdctgan_tpu_torch.train.step import build_inference_fn
 from mdctgan_tpu_torch.weights import init_weights
 
-# Segment batches in flight in ``serve_segments``: batch i's copy to the
-# host overlaps batch i+1's compute, and no more is held.
+# Segment batches in flight in ``serve_segments``: the host enqueues batch
+# i+1 before it waits for batch i, and holds no more.  1 is a synchronous
+# loop.
 IN_FLIGHT = 2
 
 
@@ -66,8 +67,9 @@ def serve_segments(model: Model, segments: np.ndarray, batch_size: int) -> np.nd
     zero-padded).  On the card each batch goes up from pinned memory and
     comes back into pinned memory without blocking, with one event; the
     host waits for batch i's event only after batch i+1 is enqueued, so at
-    most ``IN_FLIGHT`` batches are held and the copy of one overlaps the
-    compute of the next.  The result is that of a synchronous loop."""
+    most ``IN_FLIGHT`` batches are held and the card need not idle while
+    the host prepares and launches the next.  The result is that of a
+    synchronous loop."""
     seg = model.transform.cfg.segment_length
     n = len(segments)
     n_pad = (-n) % batch_size

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import csv
 import os
+import time
 import wave
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -113,7 +114,12 @@ def _process_file(path: str, opt, cfg: SpectralConfig, model: api.Model):
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Run the CLI on ``argv`` (``sys.argv`` when None).  Returns what it
     did: ``rungs`` (the weight import's fallback rungs, ``[]`` for a strict
-    load), ``rows`` (batch mode: one dict per file written) and ``out_dir``."""
+    load), ``rows`` (batch mode: one dict per file written), ``out_dir``,
+    and this run's split by the host clock: ``setup_ms`` (options, model,
+    weights) and ``file_ms`` (each file written: its ``_process_file`` and
+    its WAVs; each ends in a read of its metrics, which waits for the
+    device)."""
+    t0 = time.perf_counter()
     opt = TrainOptions().parse(argv, save=False)
     dev = serving_device(opt)
     cfg = spectral_config_from_opt(opt)
@@ -123,8 +129,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     expr_dir = os.path.join(opt.checkpoints_dir, opt.name)
     os.makedirs(expr_dir, exist_ok=True)
     paths, batch_mode = _expand_dataroot(opt.dataroot)
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    file_ms = {}
 
     if not batch_mode:
+        t0 = time.perf_counter()
         try:
             sr, lr, hr, hr_rate, m = _process_file(paths[0], opt, cfg, model)
         except AudioLoadError:
@@ -135,12 +144,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         native.write_wav16(os.path.join(expr_dir, "sr_audio.wav"), sr, cfg.hr_sampling_rate)
         native.write_wav16(os.path.join(expr_dir, "lr_audio.wav"), lr, cfg.hr_sampling_rate)
         native.write_wav16(os.path.join(expr_dir, "hr_audio.wav"), hr, hr_rate)
-        return {"rungs": rungs, "rows": [], "out_dir": expr_dir}
+        file_ms[paths[0]] = (time.perf_counter() - t0) * 1e3
+        return {"rungs": rungs, "rows": [], "out_dir": expr_dir, "setup_ms": setup_ms,
+                "file_ms": file_ms}
 
     rows = []
     used_names = set()
     for path in paths:
         print(f"=== {path}")
+        t0 = time.perf_counter()
         try:
             sr, _, _, _, m = _process_file(path, opt, cfg, model)
         except AudioLoadError as e:
@@ -153,6 +165,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         used_names.add(name)
         native.write_wav16(os.path.join(expr_dir, name), sr, cfg.hr_sampling_rate)
         rows.append({"file": path, "output": name, **m})
+        file_ms[path] = (time.perf_counter() - t0) * 1e3
     if not rows:
         raise SystemExit("no file in the corpus could be processed")
     mean = nanmean_rows([{k: v for k, v in r.items() if k not in ("file", "output")}
@@ -164,7 +177,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         w.writerow({"file": "MEAN", **mean})
     print(f"[batch] {len(rows)}/{len(paths)} files -> {expr_dir}/metrics.csv "
           f"(mean LSD {mean['lsd']:.4f}, mean SNR_SR {mean['snr_sr']:.4f})")
-    return {"rungs": rungs, "rows": rows, "out_dir": expr_dir}
+    return {"rungs": rungs, "rows": rows, "out_dir": expr_dir, "setup_ms": setup_ms,
+            "file_ms": file_ms}
 
 
 if __name__ == "__main__":

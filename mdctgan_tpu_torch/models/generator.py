@@ -19,7 +19,7 @@ attributes, which ``train/import_torch.generator_entries_for`` reads.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -35,6 +35,7 @@ from mdctgan_tpu_torch.models.layers import (
     instance_norm_relu,
     reflect_pad,
 )
+from mdctgan_tpu_torch.options import as_dict
 
 
 def _downsample_layer(kind: str, in_f: int, out_f: int) -> nn.Module:
@@ -197,7 +198,7 @@ class LocalEnhancer(nn.Module):
 def build_generator(opt) -> nn.Module:
     """Generator from an options dict or a parsed namespace (keys and
     defaults of the reference ``build_generator``)."""
-    get = (opt if isinstance(opt, Mapping) else vars(opt)).get
+    get = as_dict(opt).get
     input_size = (get("bins", 128), get("n_fft", 512) // 2)
     kind = get("netG", "global")
     common = dict(

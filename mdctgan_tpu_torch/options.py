@@ -318,13 +318,11 @@ def spectral_config_from_opt(opt) -> SpectralConfig:
     return SpectralConfig(**fields)
 
 
-# The train keys and their defaults (the JAX package's ``TrainOptions``).
-TRAIN_DEFAULTS = dict(
-    lr=0.0002, beta1=0.5, niter=100, niter_decay=100, niter_fix_global=0,
-    ndf=64, n_layers_D=3, num_D=2, lambda_feat=10.0, no_lsgan=False,
-    no_ganFeat_loss=False, pool_size=0, freeze_g_d=False, freeze_g_u=False,
-    freeze_l_d=False, freeze_l_u=False, fp16=False, accum_steps=1,
-)
+# The train keys, with their flags' defaults.
+TRAIN_DEFAULTS = {k: getattr(defaults(), k) for k in (
+    "lr", "beta1", "niter", "niter_decay", "niter_fix_global", "ndf", "n_layers_D", "num_D",
+    "lambda_feat", "no_lsgan", "no_ganFeat_loss", "pool_size", "freeze_g_d", "freeze_g_u",
+    "freeze_l_d", "freeze_l_u", "fp16", "accum_steps")}
 
 
 def train_options(opt) -> Dict:

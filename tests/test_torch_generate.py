@@ -250,8 +250,10 @@ def test_options_write_the_same_opt_txt(tmp_path):
 
 
 def test_train_defaults_are_the_flags_defaults():
-    d = vars(options.defaults())
-    assert {k: d[k] for k in options.TRAIN_DEFAULTS} == options.TRAIN_DEFAULTS
+    j_train = JTrainOptions()
+    j_train.initialize()
+    d = vars(j_train.parser.parse_args([]))
+    assert options.TRAIN_DEFAULTS == {k: d[k] for k in options.TRAIN_DEFAULTS}
 
 
 def test_tpu_form_flags_are_ignored(tmp_path, monkeypatch):
@@ -629,6 +631,15 @@ def test_generate_cli_batch_matches_jax(corpus, jax_runs, port_runs):
         assert rate == ref_rate == 48000 and sr.shape == ref_sr.shape
         np.testing.assert_allclose(sr, ref_sr, atol=2e-3 * float(np.abs(ref_sr).max()))
     assert np.isnan(float(rows[2]["snr_seg"])) and not np.isnan(float(rows[-1]["snr_seg"]))
+
+
+def test_generate_cli_returns_its_own_split(port_runs):
+    _, results = port_runs
+    batch, single = results["batch"], results["single"]
+    assert list(batch["file_ms"]) == [r["file"] for r in batch["rows"]]
+    assert len(single["file_ms"]) == 1
+    for r in (batch, single):
+        assert r["setup_ms"] > 0 and all(ms > 0 for ms in r["file_ms"].values())
 
 
 def test_generate_cli_single_file_matches_jax(jax_runs, port_runs):
