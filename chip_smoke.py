@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path and train step on one NVIDIA
-GPU.
+"""Drive the PyTorch/CUDA port's serving path, train step and entry points
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -63,13 +63,32 @@ Phases (none catches an exception; any failure exits non-zero):
      TF32 control reading; the batch-mode run timed after a warm-up file,
      split into its set-up and each file by ``main`` itself; a second run
      at batch 8 (read); a 60 s file (6 batches) with ``api.IN_FLIGHT`` 1
-     (a synchronous loop) and 2, alternated, whose SR must be identical.
+     (a synchronous loop) and 2, alternated, whose SR must be identical;
+ 10. the train entry point, ``train_cli.main`` with ``train.sh``'s flags
+     (without ``--fp16``) on a corpus that ``tools/make_corpus.py`` writes
+     (40 files of 2 s synthetic speech at 48 kHz, 36 to train, 4 to eval):
+     first the input pipeline's degrade on the card against the CPU's on
+     the same segments (TF32 off; TF32 allowed read as a control); then 3
+     epochs of 2 steps (``TRAIN_CLI_FLAGS``): finite losses, its files,
+     ``eval.csv``'s header and finite metrics, each epoch's learning rate
+     the schedule's, K1 launched 2 times a step, once an eval batch and 3
+     times a display, K2 once an eval batch and once a display, the dense
+     forms never; ``generate_cli.main`` from that run's checkpoint (a
+     strict load, K1 and K2 once); a ``--continue_train`` run that resumes
+     at epoch 4 with the first run's last state, bit for bit
+     (``checkpoint.state_digest``); 2 steps, a save, a restore into a fresh
+     state and 2 steps on fixed batches against 4 steps (losses within
+     1e-3 relative; two uninterrupted runs' spread read); and the run's own
+     split: set-up, each step's wall and ``next(pipeline)`` ms, the
+     profiled step's device idle share, eval, checkpoint bytes, save ms
+     blocking and in the background, peak memory, beside phase 8's step.
 Every result is one JSON line; a ``kernels`` line sums the kernels up
 (``launches`` on the serving path, ``train_launches`` on the train path,
-``generate_launches`` on the generate path, and under ``paths`` each
-path's batch, launches and the kernel's numbers at that batch) and the
-last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or run
-outside a checkout of the repository, it prints no result and exits 2.
+``generate_launches`` on the generate path, ``train_cli_launches`` on the
+train entry point's, and under ``paths`` each path's batch, launches and
+the kernel's numbers at that batch) and the last line is ``{"ok": true,
+"device": {...}}``.  Without CUDA, or run outside a checkout of the
+repository, it prints no result and exits 2.
 """
 
 from __future__ import annotations
@@ -107,10 +126,34 @@ GENERATE_FLAGS = [
     "--phase", "test",
 ]
 GENERATE_BATCH = int(GENERATE_FLAGS[GENERATE_FLAGS.index("--batchSize") + 1])
+# train.sh's flags without --fp16, then phase 10's depth and frequencies (in
+# samples, 20 a step; 36 training files make 2 steps an epoch, the second a
+# masked tail of 16): print every step, the step after the first profiled,
+# eval and display at step 4, the latest saved at step 5, the end of epoch 3
+# (step 6) saved with its epoch label, so a resume starts at epoch 4
+TRAIN_CLI_FLAGS = [
+    "--lr_sampling_rate", "16000", "--sr_sampling_rate", "48000",
+    "--batchSize", "20", "--nThreads", "16", "--lr", "1.5e-4",
+    "--arcsinh_transform", "--abs_spectro", "--arcsinh_gain", "1000", "--center",
+    "--norm_range", "-1", "1", "--smooth", "0.0", "--abs_norm", "--src_range", "-5", "5",
+    "--netG", "local", "--ngf", "56", "--n_downsample_global", "3", "--n_blocks_global", "4",
+    "--n_blocks_attn_g", "3", "--dim_head_g", "128", "--heads_g", "6", "--proj_factor_g", "4",
+    "--n_blocks_attn_l", "0", "--n_blocks_local", "3",
+    "--fit_residual", "--upsample_type", "interpolate", "--downsample_type", "resconv",
+    "--niter", "60", "--niter_decay", "60", "--num_D", "3",
+    "--eval_freq", "32000", "--save_latest_freq", "16000", "--save_epoch_freq", "10",
+    "--display_freq", "16000", "--tf_log",
+] + [
+    "--niter", "1", "--niter_decay", "2", "--save_epoch_freq", "3",
+    "--print_freq", "20", "--display_freq", "80", "--eval_freq", "80",
+    "--save_latest_freq", "100", "--profile_step", "1", "--profile_nsteps", "1",
+]
+CORPUS = ["--style", "speech", "--n_files", "40", "--seconds", "2.0", "--seed", "7"]
 GENERATE_SECONDS = (1.0, 2.2, 3.7)
 LONG_SECONDS = 60.0  # the in-flight reading's file: 6 batches of 16
 # Each main path's batch: phases 3, 4 and 7 check and time every kernel at each.
-PATH_BATCHES = {"serving": MAIN_BATCH, "train": TRAIN_BATCH, "generate": GENERATE_BATCH}
+PATH_BATCHES = {"serving": MAIN_BATCH, "train": TRAIN_BATCH, "generate": GENERATE_BATCH,
+                "train_cli": TRAIN_BATCH}
 BATCHES = tuple(sorted({1, *PATH_BATCHES.values()}))
 TIMED_BATCHES = tuple(sorted(set(PATH_BATCHES.values())))
 # Published peaks: float32 FMA rate outside the tensor cores, memory rate.
@@ -211,8 +254,9 @@ def device_ms(fn, calls: int = 20):
     return sum(e.self_device_time_total for e in kernels) / count / 1e3 if count else None
 
 
-def train_phase(rng, smi: str, dev: torch.device) -> dict:
-    """Phase 8; returns each kernel's launches in the 10-step run."""
+def train_phase(rng, smi: str, dev: torch.device):
+    """Phase 8; returns each kernel's launches in the 10-step run and the
+    step's timing."""
     from mdctgan_tpu_torch.configs import flagship_opt
     from mdctgan_tpu_torch.data.synthetic import speech_like
     from mdctgan_tpu_torch.models.discriminator import build_discriminator
@@ -396,8 +440,9 @@ def train_phase(rng, smi: str, dev: torch.device) -> dict:
             parts[name].append(prev.elapsed_time(events[name]))
             prev = events[name]
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from mdctgan_tpu_torch.utils import profiling
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -408,23 +453,19 @@ def train_phase(rng, smi: str, dev: torch.device) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3 / 3
     # busy time: the union of the device records' intervals (annotations
     # left out), so overlapping records are not counted twice
-    records = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    busy_us, reach = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in records):
-        busy_us += max(0.0, b - max(a, reach))
-        reach = max(reach, b)
-    busy_ms = busy_us / 1e3 / 3
-    emit({"timing": {"name": "train_step", "card": smi, "batch": TRAIN_BATCH,
-                     "ms": step_ms, "ms_min": min(times), "ms_max": max(times),
-                     "samples_per_s": TRAIN_BATCH / step_ms * 1e3,
-                     "host_enqueue_ms": host_ms,
-                     "max_memory_allocated_bytes": peak,
-                     "parts_ms": {k: statistics.median(v) for k, v in parts.items()},
-                     "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                     "device_idle_share": 1.0 - busy_ms / wall_ms,
-                     "device_records_per_step": len(records) / 3}})
-    return train_launches
+    records = profiling.device_intervals(prof)
+    busy_ms = profiling.busy_time_ms(prof, 3)
+    timing = {"name": "train_step", "card": smi, "batch": TRAIN_BATCH,
+              "ms": step_ms, "ms_min": min(times), "ms_max": max(times),
+              "samples_per_s": TRAIN_BATCH / step_ms * 1e3,
+              "host_enqueue_ms": host_ms,
+              "max_memory_allocated_bytes": peak,
+              "parts_ms": {k: statistics.median(v) for k, v in parts.items()},
+              "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+              "device_idle_share": 1.0 - busy_ms / wall_ms,
+              "device_records_per_step": len(records) / 3}
+    emit({"timing": timing})
+    return train_launches, timing
 
 
 def generate_phase(rng, smi: str, dev: torch.device) -> dict:
@@ -589,6 +630,216 @@ def generate_phase(rng, smi: str, dev: torch.device) -> dict:
                          "batch": bs, "file_ms": window, "median_ms": med,
                          "gain_ms": med[1] - med[2], "gain_share": 1.0 - med[2] / med[1],
                          "phase_s": time.perf_counter() - t_phase}})
+    return launches
+
+
+def train_cli_phase(smi: str, dev: torch.device, bare_step: dict,
+                    flags=TRAIN_CLI_FLAGS) -> dict:
+    """Phase 10; returns each kernel's launches in the checked run."""
+    import contextlib
+    import io
+
+    from mdctgan_tpu_torch import generate_cli, train_cli
+    from mdctgan_tpu_torch.data.dataset import AudioDataset
+    from mdctgan_tpu_torch.data.pipeline import InputPipeline, make_degrade_fn
+    from mdctgan_tpu_torch.device import float32_policy
+    from mdctgan_tpu_torch.models.discriminator import build_discriminator
+    from mdctgan_tpu_torch.models.generator import build_generator
+    from mdctgan_tpu_torch.ops import mdct_kernels as K
+    from mdctgan_tpu_torch.ops.features import SpectralTransform
+    from mdctgan_tpu_torch.options import TrainOptions, spectral_config_from_opt
+    from mdctgan_tpu_torch.train.checkpoint import CheckpointManager, state_digest
+    from mdctgan_tpu_torch.train.schedule import make_optimizers, pix2pixhd_lr_schedule
+    from mdctgan_tpu_torch.train.state import create_train_state
+    from mdctgan_tpu_torch.train.step import build_train_step
+
+    t_phase = time.perf_counter()
+    cuda_id = ["--gpu_ids", str(dev.index or 0) if dev.type == "cuda" else "-1"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="train_cli_", dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        # 10a. the corpus: 36 train and 4 eval files of synthetic speech
+        subprocess.run([sys.executable, str(ROOT / "tools" / "make_corpus.py"),
+                        str(tmp / "corpus"), *CORPUS], check=True, timeout=300)
+        argv = flags + cuda_id + [
+            "--dataroot", str(tmp / "corpus" / "train.csv"),
+            "--evalroot", str(tmp / "corpus" / "eval.csv"),
+            "--checkpoints_dir", str(tmp / "out"), "--name", "run",
+            "--profile_dir", str(tmp / "profile")]
+        opt = TrainOptions().parse(argv, save=False)
+        cfg = spectral_config_from_opt(opt)
+        bs = opt.batchSize
+
+        # the pipeline's degrade on the card, under the CLI's policy (TF32
+        # off), against the CPU's on the same segments; TF32 read as control
+        def serial():
+            return AudioDataset(str(tmp / "corpus" / "train.csv"), cfg.segment_length,
+                                seed=opt.seed, serial=True)
+
+        segs, rates = serial().sample_batch_rates(2 * bs)
+        degrade = make_degrade_fn(cfg, int(rates[0]), False, opt.snr)
+        refs = [degrade(torch.from_numpy(segs[i * bs:(i + 1) * bs]), torch.Generator())
+                for i in range(2)]
+        pipe = InputPipeline(serial(), cfg, bs, device=dev)
+        try:
+            got = {}
+            for tf32 in (False, True):  # the first batch TF32 off, the second on
+                with float32_policy(allow_tf32=tf32):
+                    got[tf32] = next(pipe)
+        finally:
+            pipe.close()
+        scale = float(refs[0]["lr_audio"].abs().max())
+        for k in ("hr_audio", "lr_audio"):
+            check(f"train pipeline {k} card vs CPU degrade (TF32 off)",
+                  max_err(got[False][k].cpu(), refs[0][k]), 1e-5 * scale, batch=bs,
+                  max_abs_ref=scale)
+        emit({"control": "train pipeline lr_audio card vs CPU degrade with TF32 allowed",
+              "max_abs_err": max_err(got[True]["lr_audio"].cpu(), refs[1]["lr_audio"]),
+              "bound": 1e-5 * float(refs[1]["lr_audio"].abs().max())})
+
+        # 10b. the run: 3 epochs, 6 steps
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        run = train_cli.main(argv)
+        launches = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+        out = tmp / "out" / "run"
+        steps, evals = run["steps"], run["evals"]
+        displays = sum("display" in s["fired"] for s in steps)
+        eval_batches = sum(e["batches"] for e in evals)
+        losses = [{k: v for k, v in row.items() if k not in ("step", "epoch")}
+                  for row in run["losses"]]
+        with open(out / "eval.csv") as f:
+            eval_rows = list(csv.DictReader(f))
+        sched = pix2pixhd_lr_schedule(opt.lr, 1, 2, 2)
+        want_lrs = {e: sched(2 * e - 1) for e in (1, 2, 3)}
+        emit({"train_cli_run": {"steps": len(steps), "losses": losses, "lrs": run["lrs"],
+                                "expected_lrs": want_lrs, "eval": eval_rows,
+                                "fired": [s["fired"] for s in steps], "launches": launches,
+                                "eval_batches": eval_batches, "displays": displays}})
+        if not (len(steps) == 6 and len(losses) == 6
+                and all(math.isfinite(v) for row in losses for v in row.values())):
+            raise AssertionError(f"train CLI: {len(steps)} steps, losses {losses}")
+        for name in ("loss_log.txt", "opt.txt", "web", "ckpt", "eval.csv"):
+            if not (out / name).exists():
+                raise AssertionError(f"train CLI wrote no {name}")
+        with open(out / "eval.csv") as f:
+            header = f.readline().strip()
+        if header != "step,epoch,mse,snr_sr,snr_lr,snr_seg,lsd" or not eval_rows or not all(
+                math.isfinite(float(r[k])) for r in eval_rows for k in ("lsd", "snr_sr", "snr_lr")):
+            raise AssertionError(f"eval.csv: {header} {eval_rows}")
+        if run["lrs"] != want_lrs:
+            raise AssertionError(f"learning rates {run['lrs']}, schedule {want_lrs}")
+        expected = {name: 0 for name in K.LAUNCHES}
+        expected["mdct_spectro"] = 2 * len(steps) + eval_batches + 3 * displays
+        expected["imdct_audio"] = eval_batches + displays
+        if not (displays >= 1 and eval_batches >= 1 and launches == expected == run["launches"]):
+            raise AssertionError(f"train CLI launches {launches}, expected {expected}")
+        final = state_digest(run["state"])
+        del run["state"]
+
+        # 10e. train -> generate: the port's checkpoint served on one eval file
+        K.reset_launch_counts()
+        gen_run = generate_cli.main(flags + cuda_id + [
+            "--load_pretrain", str(out), "--checkpoints_dir", str(tmp / "gen"), "--name", "gen",
+            "--dataroot", str(next((tmp / "corpus" / "wav").glob("00000.wav")))])
+        gen_launches = dict(K.LAUNCHES)
+        emit({"train_to_generate": {"rungs": gen_run["rungs"], "launches": gen_launches}})
+        if gen_run["rungs"] != [] or gen_launches != dict(
+                expected, mdct_spectro=1, imdct_audio=1):
+            raise AssertionError(f"generate from the port's checkpoint: {gen_run['rungs']}, "
+                                 f"{gen_launches}")
+
+        # 10c. resume: the restored state is the one the first run ended with
+        out_text = io.StringIO()
+        with contextlib.redirect_stdout(out_text):
+            resumed = train_cli.main(argv + ["--continue_train", "--niter", "1",
+                                             "--niter_decay", "3"])
+        printed = out_text.getvalue()
+        print(printed, end="", flush=True)
+        same = resumed["restored_digest"] == final
+        emit({"train_cli_resume": {"start": resumed["start"], "bit_for_bit": same,
+                                   "steps": len(resumed["steps"]), "lrs": resumed["lrs"],
+                                   "tensors": len(final)}})
+        if "Resuming from epoch 4 at iteration 0" not in printed or not same:
+            raise AssertionError(f"resume: {resumed['start']}, bit for bit {same}")
+        del resumed
+
+        # 10d. the resume trajectory on the card, on fixed batches: 2 steps,
+        # save, restore into a fresh state, 2 steps, against 4 steps
+        fixed = AudioDataset(str(tmp / "corpus" / "train.csv"), cfg.segment_length,
+                             seed=opt.seed, serial=True)
+        batches = []
+        for _ in range(2):
+            seg, r = fixed.sample_batch_rates(bs)
+            batches.append(make_degrade_fn(cfg, int(r[0]), False, opt.snr)(
+                torch.from_numpy(seg).to(dev), torch.Generator()))
+        g_tx, d_tx = make_optimizers(opt.lr, opt.beta1, opt.niter, opt.niter_decay, 2)
+        step = build_train_step(SpectralTransform(cfg, dev), g_tx, d_tx,
+                                n_layers_d=opt.n_layers_D, num_d=opt.num_D)
+
+        def fresh(seed):
+            return create_train_state(build_generator(opt), build_discriminator(opt), g_tx,
+                                      d_tx, device=dev, rng=torch.Generator().manual_seed(seed))
+
+        def losses_of(state, todo):
+            return [{k: float(v) for k, v in step(state, b)[1].items()} for b in todo]
+
+        # The uninterrupted run saves after its step 2 and goes on (a save
+        # changes nothing); the resumed run restores that save into a
+        # fresh state and takes steps 3 and 4 again.  Both start step 3
+        # from the same bits, so they differ only by what the card does not
+        # repeat within 2 steps (cuDNN's algorithms, atomics in backward).
+        mgr = CheckpointManager(str(tmp / "trajectory"))
+        whole = fresh(SEED)
+        head = losses_of(whole, batches)
+        mgr.save(whole, epoch=2)
+        tail = losses_of(whole, batches)
+        del whole
+        again = fresh(SEED + 1)
+        mgr.restore(again)
+        resumed = losses_of(again, batches)
+        mgr.close()
+        del again
+        other = losses_of(fresh(SEED), batches * 2)
+
+        def rel(a, b):
+            return max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+                       for x, y in zip(a, b) for k in y)
+
+        check("resume trajectory on the card: steps 3-4 after save + restore vs uninterrupted "
+              "(losses, rel)", rel(resumed, tail), 1e-3, batch=bs,
+              step3_rel=rel(resumed[:1], tail[:1]), step4_rel=rel(resumed[1:], tail[1:]),
+              spread_of_two_uninterrupted_runs_4_steps=rel(other, head + tail),
+              spread_after_2_steps=rel(other[:2], head))
+
+        # 10f. numbers
+        profiled = set(range(opt.profile_step + 1, opt.profile_step + opt.profile_nsteps + 1))
+        clean = [s["ms"] for s in steps[1:] if s["fired"] == ["print"]
+                 and s["step"] not in profiled]
+        writes = run["writes"]
+        prof = run["profile"]
+        emit({"timing": {
+            "name": "train_cli", "card": smi, "batch": bs, "steps": len(steps),
+            "setup_ms": run["setup_ms"],
+            "step_ms": [s["ms"] for s in steps], "fired": [s["fired"] for s in steps],
+            "median_step_ms_after_first": statistics.median(clean) if clean else None,
+            "clean_steps": len(clean), "bare_step_ms_phase8": bare_step["ms"],
+            "bare_step_profiled_wall_ms_phase8": bare_step["profiled_wall_ms"],
+            "bare_step_idle_share_phase8": bare_step["device_idle_share"],
+            "next_ms": [s["next_ms"] for s in steps],
+            "median_next_ms_after_first": statistics.median(s["next_ms"] for s in steps[1:]),
+            "profiled_steps": sorted(profiled), "profile": prof,
+            "eval_ms": [e["ms"] for e in evals],
+            "eval_ms_per_batch": sum(e["ms"] for e in evals) / eval_batches,
+            "checkpoint_bytes": writes[-1]["bytes"] if writes else None,
+            "save_blocking_ms": [sv["blocking_ms"] for sv in run["saves"]],
+            "save_snapshot_ms": [w["snapshot_ms"] for w in writes],
+            "save_background_ms": [w["write_ms"] for w in writes],
+            "max_memory_allocated_bytes": peak,
+            "phase_s": time.perf_counter() - t_phase}})
     return launches
 
 
@@ -836,10 +1087,13 @@ def drive() -> int:
                      "ms": wall, "ms_per_audio_s": wall / (len(audio) / 16000)}})
 
     # 8. training ------------------------------------------------------------
-    train_launches = train_phase(rng, smi, dev)
+    train_launches, step_timing = train_phase(rng, smi, dev)
 
     # 9. the generate entry point ----------------------------------------------
     generate_launches = generate_phase(rng, smi, dev)
+
+    # 10. the train entry point --------------------------------------------------
+    train_cli_launches = train_cli_phase(smi, dev, step_timing)
 
     replaces = {
         "mdct_spectro": "mdctgan_tpu/ops/pallas_mdct.py:80",
@@ -847,13 +1101,14 @@ def drive() -> int:
     }
     numbers = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     path_launches = {"serving": launches, "train": train_launches,
-                     "generate": generate_launches}
+                     "generate": generate_launches, "train_cli": train_cli_launches}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"mdctgan_tpu_torch/csrc/{name.removesuffix('_dense')}.cu",
          "replaces": replaces[name.removesuffix("_dense")],
          "launches": launches[name], "train_launches": train_launches[name],
          "generate_launches": generate_launches[name],
+         "train_cli_launches": train_cli_launches[name],
          "max_abs_err": errs[name],
          **{k: rows[(name, MAIN_BATCH)][k] for k in numbers},
          "paths": {path: {"batch": b, "launches": path_launches[path][name],

@@ -1,9 +1,11 @@
-"""mdctgan_tpu_torch — the PyTorch/CUDA port of the mdctGAN serving chain.
+"""mdctgan_tpu_torch — the PyTorch/CUDA port of mdctGAN: serving, the
+generate CLI and the train CLI.
 
 The JAX package ``mdctgan_tpu`` is the reference; this package mirrors its
 layout module for module (``ops/``, ``models/``, ``train/``, ``data/``,
-``api.py``) in PyTorch idiom: NCHW ``nn.Module``s, plain functions on
-tensors, an explicit ``device`` argument and explicit ``torch.Generator``s.
+``utils/``, ``api.py``, the CLIs) in PyTorch idiom: NCHW ``nn.Module``s,
+plain functions on tensors, an explicit ``device`` argument and explicit
+``torch.Generator``s.
 
 The two Pallas kernels of the reference (``mdctgan_tpu/ops/pallas_mdct.py``)
 are hand-written CUDA C++ kernels for Hopper (``csrc/``), built with ``nvcc``

@@ -1,6 +1,7 @@
-"""Audio file lists, whole-file test datasets, segmentation and stitching:
-the serving side of ``mdctgan_tpu/data/dataset.py`` (the random-crop train
-dataset belongs to the input pipeline, which is not ported)."""
+"""Audio file lists, the random-crop train dataset, whole-file test
+datasets, segmentation and stitching: a copy of
+``mdctgan_tpu/data/dataset.py``.  The host only decodes; resampling,
+degradation and noise run on the model's device (``data/pipeline.py``)."""
 
 from __future__ import annotations
 
@@ -87,6 +88,68 @@ def list_audio_files(path: str, max_files: Optional[int] = None) -> List[str]:
     if not files:
         raise FileNotFoundError(f"no audio files found under {path}")
     return files
+
+
+class AudioDataset:
+    """Random-crop training dataset over a file list.
+
+    ``sample()`` returns ``segment_length`` frames at the file's own rate
+    from an offset drawn by ``np.random.default_rng(seed)``, with the same
+    draws in the same order as the JAX package, and the file's rate.
+    ``serial`` takes the files in order instead of at random;
+    ``deterministic`` fixes each file's offset, drawn from
+    ``default_rng((seed, file index))``.  A file that cannot be read is
+    skipped for the next one."""
+
+    def __init__(self, index_path: str, segment_length: int, seed: int = 42,
+                 max_files: Optional[int] = None, serial: bool = False,
+                 deterministic: bool = False):
+        self.files = list_audio_files(index_path, max_files)
+        self.segment_length = int(segment_length)
+        self.serial = serial
+        self.deterministic = deterministic
+        self._cursor = 0
+        self._len_cache: dict = {}
+        self._seed = int(seed)
+        self._rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def _probe(self, idx: int) -> Tuple[int, int]:
+        """(rate, frames) of file ``idx``, read once."""
+        if idx not in self._len_cache:
+            sr, _, nframes = native.info(self.files[idx])
+            self._len_cache[idx] = (sr, nframes)
+        return self._len_cache[idx]
+
+    def sample(self, idx: Optional[int] = None) -> Tuple[np.ndarray, int]:
+        if idx is None:
+            if self.serial:
+                idx = self._cursor
+                self._cursor = (self._cursor + 1) % len(self.files)
+            else:
+                idx = int(self._rng.integers(0, len(self.files)))
+        for attempt in range(len(self.files)):
+            j = (idx + attempt) % len(self.files)
+            try:
+                sr, nframes = self._probe(j)
+                max_start = nframes - self.segment_length
+                if max_start <= 0:
+                    off = 0
+                elif self.deterministic:
+                    off = int(np.random.default_rng((self._seed, j)).integers(0, max_start))
+                else:
+                    off = int(self._rng.integers(0, max_start))
+                return native.read(self.files[j], off, self.segment_length)
+            except Exception:
+                continue  # an unreadable file: try the next
+        raise RuntimeError("no decodable audio files in dataset" + unsupported_note(self.files))
+
+    def sample_batch_rates(self, batch_size: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(segments (B, segment_length), each one's rate (B,))."""
+        segs, rates = zip(*(self.sample() for _ in range(batch_size)))
+        return np.stack(segs), np.asarray(rates, np.int64)
 
 
 class AudioTestDataset:

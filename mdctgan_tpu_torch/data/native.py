@@ -1,12 +1,12 @@
 """ctypes binding of the repository's audio I/O library (``native/audioio``).
 
-A copy of the file-I/O part of ``mdctgan_tpu/data/native.py``: ``info``,
-``read`` and ``write_wav16`` through ``libaudioio.so`` (WAV, FLAC, AIFF, and
+A copy of ``mdctgan_tpu/data/native.py``: ``info``, ``read`` and
+``write_wav16`` through ``libaudioio.so`` (WAV, FLAC, AIFF, and
 mp3/ogg/opus/m4a where their system libraries load), with the stdlib WAV
-reader and writer where the library is not there.  The library is loaded,
-and built with ``make`` if it is missing, at the first call, never at
-import.  Its multi-threaded segment prefetcher belongs to the input
-pipeline, which is not ported.
+reader and writer where the library is not there, and ``NativePrefetcher``,
+the library's multi-threaded random-crop segment decoder that the input
+pipeline reads from.  The library is loaded, and built with ``make`` if it
+is missing, at the first call, never at import.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import os
 import subprocess
 import warnings
 import wave
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -62,6 +62,14 @@ def load_library(build_if_missing: bool = True) -> Optional[ctypes.CDLL]:
     lib.audioio_write_wav16.argtypes = [ctypes.c_char_p, f32p, ctypes.c_uint64,
                                         ctypes.c_uint32]
     lib.audioio_write_wav16.restype = ctypes.c_int
+    lib.audioio_prefetcher_create.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_uint64, ctypes.c_uint64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_uint64]
+    lib.audioio_prefetcher_create.restype = ctypes.c_void_p
+    lib.audioio_prefetcher_next.argtypes = [ctypes.c_void_p, f32p, u32p]
+    lib.audioio_prefetcher_next.restype = ctypes.c_int
+    lib.audioio_prefetcher_destroy.argtypes = [ctypes.c_void_p]
+    lib.audioio_prefetcher_destroy.restype = None
     _lib = lib
     return lib
 
@@ -181,3 +189,51 @@ def write_wav16(path: str, data: np.ndarray, sample_rate: int) -> None:
         w.setsampwidth(2)
         w.setframerate(sample_rate)
         w.writeframes(pcm.tobytes())
+
+
+class NativePrefetcher:
+    """The library's multi-threaded segment prefetcher: ``n_threads`` C++
+    threads decode ``segment_frames`` frames at a random offset of a random
+    file (seeded by ``seed``; the order across threads is not fixed) into a
+    queue of ``queue_cap`` segments.  ``next()`` raises ``StopIteration``
+    when no file can be decoded."""
+
+    def __init__(self, files: List[str], segment_frames: int,
+                 n_threads: int = 2, queue_cap: int = 64, seed: int = 0):
+        lib = load_library()
+        if lib is None:
+            raise RuntimeError("native audioio library unavailable")
+        self._lib = lib
+        self.segment_frames = segment_frames
+        arr = (ctypes.c_char_p * len(files))(*[f.encode() for f in files])
+        self._handle = lib.audioio_prefetcher_create(
+            arr, len(files), segment_frames, n_threads, queue_cap, seed)
+        if not self._handle:
+            raise RuntimeError("failed to create prefetcher")
+
+    def next(self) -> Tuple[np.ndarray, int]:
+        out = np.empty(self.segment_frames, np.float32)
+        sr = ctypes.c_uint32()
+        rc = self._lib.audioio_prefetcher_next(
+            self._handle, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), sr)
+        if rc != 0:
+            raise StopIteration
+        return out, sr.value
+
+    def close(self) -> None:
+        if getattr(self, "_handle", None):
+            self._lib.audioio_prefetcher_destroy(self._handle)
+            self._handle = None
+
+    def leak(self) -> None:
+        """Abandon the C++ object without destroying it, for a shutdown in
+        which a thread may still be blocked inside ``next()``: destroying it
+        there is a use-after-free, and so would be ``__del__`` without this.
+        The process's exit reclaims it."""
+        self._handle = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

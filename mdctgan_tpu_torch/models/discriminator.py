@@ -11,13 +11,13 @@ the same convolution; here it is a plain one.
 
 from __future__ import annotations
 
-from typing import List, Mapping
+from typing import List
 
 import torch
 import torch.nn as nn
 
 from mdctgan_tpu_torch.models.layers import Conv, avg_pool_3x3_s2, instance_norm, leaky_relu
-from mdctgan_tpu_torch.options import train_options
+from mdctgan_tpu_torch.options import as_dict, train_options
 
 
 class NLayerDiscriminator(nn.Module):
@@ -72,14 +72,15 @@ class MultiscaleDiscriminator(nn.Module):
         return results
 
 
-def build_discriminator(opt: Mapping) -> MultiscaleDiscriminator:
-    """Discriminator from an options dict, with the defaults of
-    ``options.train_options`` (which raises for what the port does not
-    train yet).  It sees the LR spectrum beside the generator's input
-    channels of an image: ``input_nc + output_nc``."""
+def build_discriminator(opt) -> MultiscaleDiscriminator:
+    """Discriminator from an options dict or a parsed namespace, with the
+    defaults of ``options.train_options`` (which raises for what the port
+    does not train yet).  It sees the LR spectrum beside the generator's
+    input channels of an image: ``input_nc + output_nc``."""
     tro = train_options(opt)
+    o = as_dict(opt)
     return MultiscaleDiscriminator(
-        input_nc=opt.get("input_nc", 2) + opt.get("output_nc", 1),
+        input_nc=o.get("input_nc", 2) + o.get("output_nc", 1),
         ndf=tro["ndf"],
         n_layers=tro["n_layers_D"],
         num_D=tro["num_D"],

@@ -94,8 +94,9 @@ def add_noise_snr(waveform: torch.Tensor, snr_db: float, segment_length: int,
 
 
 def fix_length(waveform: torch.Tensor, length: int) -> torch.Tensor:
-    """Crop or zero-pad the last axis to ``length``."""
+    """Crop or zero-pad the last axis to ``length``; the result is
+    contiguous, as the kernels' inputs must be."""
     t = waveform.shape[-1]
     if t >= length:
-        return waveform[..., :length]
+        return waveform[..., :length].contiguous()
     return F.pad(waveform, (0, length - t))

@@ -226,7 +226,7 @@ class TrainOptions(BaseOptions):
         p.add_argument("--profile_nsteps", type=int, default=4)
         p.add_argument("--multihost", action="store_true")
         p.add_argument("--accum_steps", type=int, default=1,
-                       help="gradient accumulation (not ported: > 1 raises)")
+                       help="micro-batches averaged into each optimizer update")
         p.add_argument("--export_path", type=str, default="")
         p.add_argument("--export_batch", type=int, default=8)
         p.add_argument("--export_platforms", type=str, default="tpu")
@@ -328,12 +328,12 @@ TRAIN_DEFAULTS = {k: getattr(defaults(), k) for k in (
 def train_options(opt) -> Dict:
     """The train keys of ``opt`` (a dict or a parsed namespace), with
     defaults.  Raises ``NotImplementedError`` for what the port does not
-    train yet: the bf16 policy (``fp16``) and gradient accumulation
-    (``accum_steps > 1``)."""
+    train yet: the bf16 policy (``fp16``) and several processes
+    (``multihost``)."""
     o = as_dict(opt)
     out = {k: o.get(k, v) for k, v in TRAIN_DEFAULTS.items()}
     if out["fp16"]:
         raise NotImplementedError("the bf16 policy (fp16) is not ported")
-    if int(out["accum_steps"]) > 1:
-        raise NotImplementedError("gradient accumulation (accum_steps > 1) is not ported")
+    if o.get("multihost"):
+        raise NotImplementedError("--multihost: multi-process training (DDP) is not ported")
     return out

@@ -3,9 +3,11 @@
 
 An optimizer is given as an ``OptimizerSpec`` (the counterpart of an optax
 ``GradientTransformation``): how to build a ``torch.optim`` optimizer over
-parameters, and the schedule of its learning rate over the update count.
-The count is the train state's ``step``, kept outside the optimizer: the
-step sets every group's ``lr`` to ``schedule(step)`` before
+parameters, the schedule of its learning rate over the update count, and
+how many micro-batches each update averages (``optax.MultiSteps``).  The
+train state's ``step`` counts micro-batches, as the JAX state's does; the
+update count is ``step // accum_steps``, kept outside the optimizer: the
+step sets every group's ``lr`` to ``schedule(step // accum_steps)`` before
 ``optimizer.step()``, so the first update uses ``schedule(0)``, as
 ``optax.adam(schedule)`` does.
 """
@@ -28,11 +30,13 @@ class OptimizerSpec:
     """``factory(params)`` builds the optimizer; ``schedule(count)``, when
     given, sets its learning rate before each update; ``labels`` maps
     parameter names to ``"train"`` or ``"frozen"`` (``freeze.masked_optimizer``)
-    and frozen parameters are left out of the optimizer."""
+    and frozen parameters are left out of the optimizer; each update
+    averages the gradients of ``accum_steps`` micro-batches."""
 
     factory: Callable[[list], torch.optim.Optimizer]
     schedule: Optional[Schedule] = None
     labels: Optional[Mapping[str, str]] = None
+    accum_steps: int = 1
 
     def init(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]]
              ) -> torch.optim.Optimizer:
@@ -68,14 +72,17 @@ def pix2pixhd_lr_schedule(lr0: float, niter: int, niter_decay: int,
 
 
 def make_optimizers(lr: float, beta1: float, niter: int, niter_decay: int,
-                    steps_per_epoch: int) -> Tuple[OptimizerSpec, OptimizerSpec]:
+                    steps_per_epoch: int, accum_steps: int = 1
+                    ) -> Tuple[OptimizerSpec, OptimizerSpec]:
     """The reference's two optimizers: Adam(lr, betas (beta1, 0.999),
-    eps 1e-8) for G and for D, with the epoch-linear decay.  Gradient
-    accumulation is not ported: ``options.train_options`` raises for
-    ``accum_steps > 1``."""
-    sched = pix2pixhd_lr_schedule(lr, niter, niter_decay, steps_per_epoch)
+    eps 1e-8) for G and for D, with the epoch-linear decay.  With
+    ``accum_steps`` k > 1 each update averages k micro-batches and the
+    schedule counts updates, ``steps_per_epoch // k`` an epoch, so epoch
+    boundaries stay where they were (``optax.MultiSteps`` in JAX)."""
+    accum = max(int(accum_steps), 1)
+    sched = pix2pixhd_lr_schedule(lr, niter, niter_decay, max(steps_per_epoch // accum, 1))
     adam = functools.partial(torch.optim.Adam, lr=lr, betas=(beta1, 0.999), eps=1e-8)
-    return OptimizerSpec(adam, sched), OptimizerSpec(adam, sched)
+    return OptimizerSpec(adam, sched, accum_steps=accum), OptimizerSpec(adam, sched, accum_steps=accum)
 
 
 def carry_schedule_count(state, g_tx: OptimizerSpec):

@@ -66,9 +66,12 @@ def build_train_step(
     autograd graph (the spectra are constants of the step).  The step
     updates ``state`` in place: G runs once in train mode (its BatchNorm
     running statistics move once), both optimizers step with their
-    schedules read at ``state.step``, then ``state.step`` grows by one.
+    schedules read at the update count, then ``state.step`` grows by one.
     ``g_tx``/``d_tx`` give the schedules and must be the specs the state's
-    optimizers were built from.
+    optimizers were built from.  With their ``accum_steps`` k > 1 each
+    parameter's ``.grad`` keeps the running mean of the micro-batches'
+    gradients (``optax.MultiSteps``' form) and the optimizers step on every
+    k-th call, at update count ``state.step // k``.
 
     With ``use_pool`` the D_fake input is the per-sample mix
     ``m*pool_old + (1-m)*fake`` of ``ImagePool.presample``'s ``(pool_old,
@@ -80,6 +83,10 @@ def build_train_step(
     ("k1", "g_forward", "d_forward", "backward", "optimizer") for timing.
     The step runs under ``float32_policy(allow_tf32)``: TF32 off unless a
     caller asks for it to read what it costs."""
+
+    if g_tx.accum_steps != d_tx.accum_steps:
+        raise ValueError("G and D must accumulate over the same number of micro-batches")
+    accum = g_tx.accum_steps
 
     def d_concat(lr_spec, img_spec):
         return torch.cat((lr_spec, transform.g_input(img_spec)), dim=1)
@@ -134,12 +141,14 @@ def build_train_step(
         grads = torch.autograd.grad(loss_g + loss_d, g_params + d_params)
         mark("backward")
 
+        n = state.step % accum  # micro-batches already in this update
         for p, g in zip(g_params + d_params, grads):
-            p.grad = g
-        g_tx.set_lr(state.g_opt, state.step)
-        d_tx.set_lr(state.d_opt, state.step)
-        state.g_opt.step()
-        state.d_opt.step()
+            p.grad = g if n == 0 or p.grad is None else (g + n * p.grad) / (n + 1)
+        if n == accum - 1:
+            g_tx.set_lr(state.g_opt, state.step // accum)
+            d_tx.set_lr(state.d_opt, state.step // accum)
+            state.g_opt.step()
+            state.d_opt.step()
         state.step += 1
         mark("optimizer")
 

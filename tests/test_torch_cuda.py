@@ -232,3 +232,56 @@ def test_small_generate_cli_on_card_matches_cpu(cuda, tmp_path):
         assert float(np.abs(wavs[0] - wavs[1]).max()) <= 2e-3 * float(np.abs(wavs[1]).max())
     with open(tmp_path / "out" / "card" / "metrics.csv") as f:
         assert [r["file"] for r in csv.DictReader(f)][-1] == "MEAN"
+
+
+@pytest.mark.cuda
+def test_small_train_cli_on_card_matches_cpu(cuda, tmp_path):
+    """The train CLI at small geometry on the card and on the CPU from the
+    same reference-layout G and D: the first step's losses within 1e-3
+    relative; K1 launched 2 times a step, once an eval batch and 3 times a
+    display, K2 once an eval batch and once a display, the dense forms
+    never."""
+    from mdctgan_tpu_torch import train_cli
+    from mdctgan_tpu_torch.train.import_torch import discriminator_entries
+
+    flags = ["--lr_sampling_rate", "16000", "--center", "--arcsinh_transform",
+             "--abs_spectro", "--abs_norm", "--norm_range", "-1", "1", "--fit_residual",
+             "--netG", "global", "--ngf", "4", "--n_downsample_global", "2",
+             "--n_blocks_global", "1", "--n_blocks_attn_g", "1", "--heads_g", "2",
+             "--dim_head_g", "4", "--segment_length", "8128", "--n_fft", "128",
+             "--hop_length", "64", "--win_length", "128", "--bins", "128",
+             "--num_D", "2", "--n_layers_D", "2", "--ndf", "4", "--batchSize", "2",
+             "--checkpoints_dir", str(tmp_path / "out")]
+    opt = TrainOptions().parse(flags, save=False)
+    rng = np.random.default_rng(4)
+    gen, disc = build_generator(opt), build_discriminator(opt)
+    g_state = state_dict_from_jax(*random_jax_trees(gen, rng))
+    g_state["head.conv.weight"] *= 0.01
+    d_state = state_dict_from_jax(*random_jax_trees(disc, rng))
+    (tmp_path / "pre").mkdir()
+    torch.save(export_to_torch_keys(g_state, generator_entries_for(gen)),
+               tmp_path / "pre" / "latest_net_G.pth")
+    torch.save(export_to_torch_keys(d_state, discriminator_entries(2, 2)),
+               tmp_path / "pre" / "latest_net_D.pth")
+    for split, n in (("train", 4), ("eval", 3)):
+        (tmp_path / split).mkdir()
+        for i in range(n):
+            native.write_wav16(str(tmp_path / split / f"s{i}.wav"),
+                               (0.1 * rng.standard_normal(12000 + 1000 * i)).astype(np.float32),
+                               48000)
+    common = flags + [
+        "--dataroot", str(tmp_path / "train"), "--evalroot", str(tmp_path / "eval"),
+        "--load_pretrain", str(tmp_path / "pre"), "--serial_batches", "--deterministic_eval",
+        "--niter", "1", "--niter_decay", "0", "--print_freq", "2", "--display_freq", "2",
+        "--eval_freq", "4", "--eval_size", "3", "--save_latest_freq", "1000000",
+        "--no_html", "--nThreads", "1"]
+    K.reset_launch_counts()
+    card = train_cli.main(common + ["--name", "card", "--gpu_ids", "0"])
+    launches = dict(K.LAUNCHES)
+    cpu = train_cli.main(common + ["--name", "cpu", "--gpu_ids", "-1"])
+    steps, evals, displays = 2, 2, 2
+    assert card["launches"] == launches == {
+        "mdct_spectro": 2 * steps + evals + 3 * displays, "imdct_audio": evals + displays,
+        "mdct_spectro_dense": 0, "imdct_audio_dense": 0}
+    for k, ref in cpu["losses"][0].items():
+        assert card["losses"][0][k] == pytest.approx(ref, rel=1e-3), k

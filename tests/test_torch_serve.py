@@ -136,7 +136,7 @@ def test_segments_and_stitch_match_jax(rng, length, overlap):
 # guards
 # --------------------------------------------------------------------------
 
-_BANNED = ("jax", "flax", "optax", "mdctgan_tpu")
+_BANNED = ("jax", "flax", "optax", "orbax", "mdctgan_tpu")
 
 
 def _banned(module: str) -> bool:
@@ -147,6 +147,11 @@ def test_port_imports_no_jax():
     files = (sorted((ROOT / "mdctgan_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
              + sorted((ROOT / "probes").glob("*.py")))
     assert len(files) > 10
+    # the train entry point and every module it added
+    for name in ("train_cli.py", "data/pipeline.py", "train/checkpoint.py",
+                 "utils/visualizer.py", "utils/html.py", "utils/spectro_img.py",
+                 "utils/profiling.py"):
+        assert ROOT / "mdctgan_tpu_torch" / name in files, name
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             names = []

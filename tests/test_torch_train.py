@@ -589,9 +589,10 @@ def test_create_train_state_without_cuda_raises(monkeypatch):
 
 def test_unported_train_options_raise():
     assert train_options({})["num_D"] == 2
+    assert train_options({"accum_steps": 2})["accum_steps"] == 2  # ported with the train CLI
     with pytest.raises(NotImplementedError):
         train_options({"fp16": True})
     with pytest.raises(NotImplementedError):
-        train_options({"accum_steps": 2})
+        train_options({"multihost": True})
     with pytest.raises(NotImplementedError):
         build_discriminator({"fp16": True})
