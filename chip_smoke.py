@@ -25,6 +25,10 @@ Phases (none catches an exception; any failure exits non-zero):
      launch counts of every kernel read around them (the FFT forms must
      launch, the dense forms must not), and one request compared with the
      port on the CPU;
+     6b. the bf16 policy (``fp16``): the flagship LocalEnhancer's bf16 logits
+     on the card and on the CPU against the float64 generator (the card's
+     error within ``BF16_FACTOR`` times the CPU's, by max and RMS), and the
+     three requests again through a bf16 model, counted the same way;
   7. timings at each main path's batch (8, 16, 20) of each kernel (FFT
      and dense forms at n_fft 512), its plain version and a library matmul
      yardstick: as
@@ -32,7 +36,8 @@ Phases (none catches an exception; any failure exits non-zero):
      (``eager_ms``, which add the host's launch cost) and, for the
      kernels, as device time from ``torch.profiler`` (``device_ms``),
      beside the bound; a one-element add, the least time of a kernel node
-     in a graph; the generator forward, and end-to-end ``upsample``;
+     in a graph; the generator forward and end-to-end ``upsample``, in
+     float32 and in bf16;
   8. training, through ``create_train_state`` and ``build_train_step`` at the
      flagship config: one SGD(lr=1) step (its update is the gradient) at
      batch 2 on the card against the same step on the CPU, from the same
@@ -40,32 +45,38 @@ Phases (none catches an exception; any failure exits non-zero):
      flagship bounds were measured on) with the CPU fed the card's spectra:
      losses 1e-3 relative, every gradient tensor within the JAX package's
      flagship bounds G 2.5e-2 / D 5e-3 normwise (floor 1e-3); control
-     readings with each side on its own spectra and with TF32 allowed; 10
-     steps of the flagship Adam at batch 20 on synthetic speech (finite
-     losses, G and D move, K1 launched twice a step, every other kernel
-     never); a batch-20 step whose ``sample_mask`` keeps 13 rows against a
-     batch-13 step; the step's median time over 20 steps, samples per
-     second, peak memory, one step split into its parts by CUDA events, and
-     the card's busy time and kernel records per step from
-     ``torch.profiler``;
+     readings with each side on its own spectra and with TF32 allowed;
+     the same step in bf16 on the card and on the CPU against the float64
+     step, per top-level block and over the losses (the card within
+     ``BF16_FACTOR`` times the CPU's error); 5 float32 and 10 bf16 steps of
+     the flagship Adam at batch 20 on synthetic speech (finite losses, G
+     and D move, K1 launched twice a step, every other kernel never), each
+     followed by the step's median time over 20 steps, samples per second,
+     peak memory, one step split into its parts by CUDA events, and the
+     card's busy time, kernel records and top kernels per step from
+     ``torch.profiler`` (with the share of cuDNN's FFT-tiled
+     convolutions); a batch-20 step whose ``sample_mask`` keeps 13 rows
+     against a batch-13 step;
   9. the generate entry point, ``generate_cli.main`` with
-     ``generate_audio.sh``'s flags (without ``--fp16``): a reference-layout
+     ``generate_audio.sh``'s flags (``--fp16`` included): a reference-layout
      ``latest_net_G.pth`` of seeded flagship weights (the output head damped
      100x, so the SR stays within the WAVs' full scale as a trained model's
      does) and three synthetic-speech WAVs at 48 kHz (1.0, 2.2, 3.7 s) plus
      one file that cannot be decoded, in batch mode on the card: a strict
      load, 3 rows and ``MEAN`` in ``metrics.csv``, all finite but
      ``snr_seg``, the bad file skipped, K1 and K2 once per batch, the dense
-     forms never; the 1.0 s file again on the CPU (batch 2): its SR WAV
-     within 2e-3 of its largest value, LSD 1e-3 relative, each SNR 0.01 dB,
-     MSE 1e-2 relative; the JAX package's default generator (``netG global``,
-     transconv up) at batch 2 on the card against the CPU, within 5e-4 with a
-     TF32 control reading; the batch-mode run timed after a warm-up file,
-     split into its set-up and each file by ``main`` itself; a second run
-     at batch 8 (read); a 60 s file (6 batches) with ``api.IN_FLIGHT`` 1
-     (a synchronous loop) and 2, alternated, whose SR must be identical;
+     forms never; the 1.0 s file in float32 on the card and on the CPU
+     (batch 2): its SR WAV within 2e-3 of its largest value, LSD 1e-3
+     relative, each SNR 0.01 dB, MSE 1e-2 relative; the same file in bf16
+     on the CPU against the card (read); the JAX package's default
+     generator (``netG global``, transconv up) at batch 2 on the card
+     against the CPU, within 5e-4 with a TF32 control reading; the
+     batch-mode run in bf16 and in float32, each timed after a warm-up
+     file, split into its set-up and each file by ``main`` itself; a second
+     run at batch 8 (read); a 60 s file (6 batches) with ``api.IN_FLIGHT``
+     1 (a synchronous loop) and 2, alternated, whose SR must be identical;
  10. the train entry point, ``train_cli.main`` with ``train.sh``'s flags
-     (without ``--fp16``) on a corpus that ``tools/make_corpus.py`` writes
+     (``--fp16`` included) on a corpus that ``tools/make_corpus.py`` writes
      (40 files of 2 s synthetic speech at 48 kHz, 36 to train, 4 to eval):
      first the input pipeline's degrade on the card against the CPU's on
      the same segments (TF32 off; TF32 allowed read as a control); then 3
@@ -74,19 +85,22 @@ Phases (none catches an exception; any failure exits non-zero):
      the schedule's, K1 launched 2 times a step, once an eval batch and 3
      times a display, K2 once an eval batch and once a display, the dense
      forms never; ``generate_cli.main`` from that run's checkpoint (a
-     strict load, K1 and K2 once); a ``--continue_train`` run that resumes
-     at epoch 4 with the first run's last state, bit for bit
-     (``checkpoint.state_digest``); 2 steps, a save, a restore into a fresh
-     state and 2 steps on fixed batches against 4 steps (losses within
-     1e-3 relative; two uninterrupted runs' spread read); and the run's own
-     split: set-up, each step's wall and ``next(pipeline)`` ms, the
-     profiled step's device idle share, eval, checkpoint bytes, save ms
-     blocking and in the background, peak memory, beside phase 8's step.
+     strict load, K1 and K2 once); ``export_torch_cli.main`` on the
+     checkpoint and ``generate_cli.main`` from the exported ``.pth``, whose
+     SR is the checkpoint's within 2e-3 of its largest value; a
+     ``--continue_train`` run that resumes at epoch 4 with the first run's
+     last state, bit for bit (``checkpoint.state_digest``); 2 steps, a
+     save, a restore into a fresh state and 2 steps on fixed batches
+     against 4 steps (losses within 1e-3 relative; two uninterrupted runs'
+     spread read); and the run's own split: set-up, each step's wall and
+     ``next(pipeline)`` ms, the profiled step's device idle share, eval,
+     checkpoint bytes, save ms blocking and in the background, peak
+     memory, beside phase 8's bf16 step.
 Every result is one JSON line; a ``kernels`` line sums the kernels up
-(``launches`` on the serving path, ``train_launches`` on the train path,
-``generate_launches`` on the generate path, ``train_cli_launches`` on the
-train entry point's, and under ``paths`` each path's batch, launches and
-the kernel's numbers at that batch) and the last line is ``{"ok": true,
+(``launches`` on the serving path, ``<path>_launches`` on each other path:
+``serving_fp16``, ``train`` (float32), ``train_fp16``, ``generate`` and
+``train_cli`` (both ``--fp16``), and under ``paths`` each path's batch,
+launches and the kernel's numbers at that batch) and the last line is ``{"ok": true,
 "device": {...}}``.  Without CUDA, or run outside a checkout of the
 repository, it prints no result and exits 2.
 """
@@ -110,10 +124,11 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 MAIN_BATCH = 8  # api.upsample's batch of segments
 TRAIN_BATCH = 20  # train.sh's batch
-TRAIN_STEPS = 10
+TRAIN_STEPS = {"f32": 5, "bf16": 10}  # phase 8's Adam steps in each precision
 GAIN = 1000.0
-# generate_audio.sh's flags without --fp16 (the bf16 policy is not ported)
+# generate_audio.sh's flags, --fp16 (the bf16 policy) included
 GENERATE_FLAGS = [
+    "--fp16",
     "--lr_sampling_rate", "16000", "--sr_sampling_rate", "48000",
     "--batchSize", "16", "--nThreads", "1",
     "--arcsinh_transform", "--abs_spectro", "--arcsinh_gain", "1000", "--center",
@@ -126,13 +141,13 @@ GENERATE_FLAGS = [
     "--phase", "test",
 ]
 GENERATE_BATCH = int(GENERATE_FLAGS[GENERATE_FLAGS.index("--batchSize") + 1])
-# train.sh's flags without --fp16, then phase 10's depth and frequencies (in
+# train.sh's flags, --fp16 included, then phase 10's depth and frequencies (in
 # samples, 20 a step; 36 training files make 2 steps an epoch, the second a
 # masked tail of 16): print every step, the step after the first profiled,
 # eval and display at step 4, the latest saved at step 5, the end of epoch 3
 # (step 6) saved with its epoch label, so a resume starts at epoch 4
 TRAIN_CLI_FLAGS = [
-    "--lr_sampling_rate", "16000", "--sr_sampling_rate", "48000",
+    "--fp16", "--lr_sampling_rate", "16000", "--sr_sampling_rate", "48000",
     "--batchSize", "20", "--nThreads", "16", "--lr", "1.5e-4",
     "--arcsinh_transform", "--abs_spectro", "--arcsinh_gain", "1000", "--center",
     "--norm_range", "-1", "1", "--smooth", "0.0", "--abs_norm", "--src_range", "-5", "5",
@@ -152,7 +167,8 @@ CORPUS = ["--style", "speech", "--n_files", "40", "--seconds", "2.0", "--seed", 
 GENERATE_SECONDS = (1.0, 2.2, 3.7)
 LONG_SECONDS = 60.0  # the in-flight reading's file: 6 batches of 16
 # Each main path's batch: phases 3, 4 and 7 check and time every kernel at each.
-PATH_BATCHES = {"serving": MAIN_BATCH, "train": TRAIN_BATCH, "generate": GENERATE_BATCH,
+PATH_BATCHES = {"serving": MAIN_BATCH, "serving_fp16": MAIN_BATCH, "train": TRAIN_BATCH,
+                "train_fp16": TRAIN_BATCH, "generate": GENERATE_BATCH,
                 "train_cli": TRAIN_BATCH}
 BATCHES = tuple(sorted({1, *PATH_BATCHES.values()}))
 TIMED_BATCHES = tuple(sorted(set(PATH_BATCHES.values())))
@@ -161,6 +177,13 @@ PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12)}
 # K1's epilogue and K2's prologue per spectrum value: the gain, asinh or
 # sinh, the ln10 scale and the affine FMA, one operation each.
 AFFINE_OPS = 4
+# How many times the port's bf16 error on the CPU (against a float64 truth)
+# the card's bf16 error may be: the CPU tests hold the port's bf16 to 2x the
+# JAX package's (tests/test_torch_bf16.py), and the card's bf16 rounds at
+# the same points.
+BF16_FACTOR = 2.0
+# One bf16 step (2^-8 relative): the floor of the bf16 losses' bound.
+BF16_STEP = 2.0 ** -8
 
 
 def mdct_frame_ops(n: int) -> float:
@@ -180,6 +203,46 @@ def check(name: str, err: float, bound: float, **info) -> float:
     if not err <= bound:
         raise AssertionError(f"{name}: max |err| {err} exceeds {bound}")
     return err
+
+
+def errors(got: torch.Tensor, truth: torch.Tensor):
+    """(max, RMS) of ``got - truth`` in float64."""
+    d = got.detach().double().cpu() - truth.detach().double().cpu()
+    return float(d.abs().max()), float(d.pow(2).mean().sqrt())
+
+
+def block(name: str) -> str:
+    """The top-level block of a parameter: a global stage, an enhancer stage
+    or a discriminator layer."""
+    parts = name.split(".")
+    return ".".join(parts[:2]) if parts[0] == "global" or parts[0].startswith("scale") \
+        else parts[0]
+
+
+def bf16_against_truth(label: str, card: dict, cpu: dict, truth: dict) -> dict:
+    """Each entry's (max, RMS) error against ``truth``, the card's and the
+    CPU's in bf16, and the card's as a share of ``BF16_FACTOR`` times the
+    CPU's; fails past 1."""
+    rows, worst = {}, 0.0
+    for k, t in truth.items():
+        c, p = errors(card[k], t), errors(cpu[k], t)
+        share = max(c[0] / p[0], c[1] / p[1]) / BF16_FACTOR
+        rows[k] = {"card_max": c[0], "card_rms": c[1], "cpu_max": p[0], "cpu_rms": p[1],
+                   "share_of_bound": share}
+        worst = max(worst, share)
+    emit({"check": label, "factor": BF16_FACTOR, "max_share_of_bound": worst, "rows": rows})
+    if not worst <= 1.0:
+        raise AssertionError(f"{label}: the card's bf16 error is {worst * BF16_FACTOR:.3f}x "
+                             f"the CPU's (bound {BF16_FACTOR})")
+    return rows
+
+
+def pooled(grads: dict) -> dict:
+    """Per block, every tensor of ``grads`` flattened into one."""
+    out = {}
+    for name, g in grads.items():
+        out.setdefault(block(name), []).append(g.ravel())
+    return {b: torch.cat(v) for b, v in out.items()}
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -255,8 +318,8 @@ def device_ms(fn, calls: int = 20):
 
 
 def train_phase(rng, smi: str, dev: torch.device):
-    """Phase 8; returns each kernel's launches in the 10-step run and the
-    step's timing."""
+    """Phase 8; returns each kernel's launches in the float32 and the bf16
+    Adam runs, and each one's step timing."""
     from mdctgan_tpu_torch.configs import flagship_opt
     from mdctgan_tpu_torch.data.synthetic import speech_like
     from mdctgan_tpu_torch.models.discriminator import build_discriminator
@@ -269,6 +332,7 @@ def train_phase(rng, smi: str, dev: torch.device):
     from mdctgan_tpu_torch.train.schedule import make_optimizers
     from mdctgan_tpu_torch.train.state import create_train_state
     from mdctgan_tpu_torch.train.step import build_train_step
+    from mdctgan_tpu_torch.utils import profiling
     from mdctgan_tpu_torch.weights import random_jax_trees, state_dict_from_jax
 
     opt = flagship_opt()
@@ -347,6 +411,42 @@ def train_phase(rng, smi: str, dev: torch.device):
     if not held["card_tf32", "cpu"][1] > 1.0:
         raise AssertionError("TF32 passes the train gradient bound: it is too loose")
 
+    # 8b. the bf16 policy (--fp16): one SGD(1) step of bf16 G and D ----------
+    # on the card and on the CPU, both fed the card's spectra, each against
+    # the float64 step on those spectra (8a's truth).  The card's gradient
+    # error is held per top-level block, pooled over the block's tensors,
+    # by max and by RMS, to BF16_FACTOR times the CPU's.  A loss is one
+    # scalar, and its bf16 error one draw: on this script's draw the card's
+    # largest reads 6x the CPU's, while the generator's logits (6b) and
+    # every gradient block read at most 1.27x the CPU's error.  So each
+    # loss is held to BF16_FACTOR times the CPU's largest relative loss
+    # error or to one bf16 step, whichever is larger.
+    opt16 = dict(opt, fp16=True)
+    for name, device, transform in (("cpu_bf16", cpu, GT.SharedSpectra(cpu_t, card_t)),
+                                    ("card_bf16", dev, card_t)):
+        t0 = time.perf_counter()
+        runs[name] = GT.sgd_step(opt16, GT.load_nets(opt16, g_sd, d_sd), transform, batch,
+                                 device)
+        secs[name] = time.perf_counter() - t0
+    emit({"train_step_s": {k: secs[k] for k in ("cpu_bf16", "card_bf16")}, "batch": 2})
+    truth_losses, truth_grads = runs["f64_card_spectra"]
+
+    def loss_rel(run):
+        return {k: abs(run[0][k] - v) / abs(v) for k, v in truth_losses.items()}
+
+    card_rel, cpu_rel = loss_rel(runs["card_bf16"]), loss_rel(runs["cpu_bf16"])
+    check("train step bf16 losses, card vs float64 (max rel)", max(card_rel.values()),
+          max(BF16_FACTOR * max(cpu_rel.values()), BF16_STEP), card_rel=card_rel,
+          cpu_rel=cpu_rel, truth=truth_losses)
+    for net in GT.BOUNDS:
+        bf16_against_truth(f"train step bf16 {net} gradients by block, card and CPU vs float64",
+                           pooled(runs["card_bf16"][1][net]), pooled(runs["cpu_bf16"][1][net]),
+                           pooled(truth_grads[net]))
+        r = GT.normwise(runs["cpu_bf16"][1][net], runs["card_bf16"][1][net], GT.BOUNDS[net])
+        emit({"reading": f"train step bf16 {net}: card vs CPU, both bf16",
+              "max_share_of_jax_bound": r["max_share"], "max_rel_err": r["max_rel_err"],
+              "worst": r["worst"]})
+
     # synthetic speech at 48 kHz, cut into segments; LR by the port's degrade
     n_seg = TRAIN_BATCH * 2
     hr = speech_like(rng, n_seg * seg / 48000, 48000)[: n_seg * seg].reshape(n_seg, seg)
@@ -358,37 +458,119 @@ def train_phase(rng, smi: str, dev: torch.device):
         return {"lr_audio": torch.from_numpy(lr[rows]).to(device),
                 "hr_audio": torch.from_numpy(hr[rows]).to(device)}
 
-    # 8b. the trainer: flagship Adam at batch 20 --------------------------------
-    spe = 1000  # the schedule is flat through the first 60 epochs at any size
-    g_tx, d_tx = make_optimizers(tro["lr"], tro["beta1"], tro["niter"], tro["niter_decay"], spe)
-    state = create_train_state(build_generator(opt), build_discriminator(opt), g_tx, d_tx,
-                               device=dev, rng=torch.Generator().manual_seed(SEED))
-    step = build_train_step(SpectralTransform(cfg, dev), g_tx, d_tx, **step_kw)
     batches = [batch_on(dev, slice(i, i + TRAIN_BATCH)) for i in (0, TRAIN_BATCH)]
-    first = {n: torch.cat([p.detach().ravel() for p in m.parameters()])
-             for n, m in (("G", state.generator), ("D", state.discriminator))}
-    K.reset_launch_counts()
-    history = []
-    for i in range(TRAIN_STEPS):
-        state, metrics = step(state, batches[i % 2])
-        history.append({k: float(v) for k, v in metrics.items()})
-    train_launches = dict(K.LAUNCHES)
-    moved = {n: float((torch.cat([p.detach().ravel() for p in m.parameters()]) - first[n])
-                      .abs().max())
-             for n, m in (("G", state.generator), ("D", state.discriminator))}
-    emit({"train_run": {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "losses": history,
-                        "max_abs_param_move": moved, "launches": train_launches,
-                        "lr": state.g_opt.param_groups[0]["lr"]}})
-    if not all(math.isfinite(v) for h in history for v in h.values()):
-        raise AssertionError("a train loss is not finite")
-    if not (moved["G"] > 0 and moved["D"] > 0):
-        raise AssertionError(f"a network did not move: {moved}")
-    expected = {name: 0 for name in K.LAUNCHES}
-    expected["mdct_spectro"] = 2 * TRAIN_STEPS
-    if train_launches != expected:
-        raise AssertionError(f"train launches {train_launches}, expected {expected}")
 
-    # 8c. the tail batch: 13 real rows of 20 against a batch of 13 ---------------
+    # 8c. the trainer: flagship Adam at batch 20, float32 then bf16 ------------
+    def trainer(precision: str, run_opt: dict):
+        """``TRAIN_STEPS[precision]`` Adam steps (checked), then the step's
+        timings; returns the steps' kernel launches and the timing."""
+        steps = TRAIN_STEPS[precision]
+        spe = 1000  # the schedule is flat through the first 60 epochs at any size
+        g_tx, d_tx = make_optimizers(tro["lr"], tro["beta1"], tro["niter"], tro["niter_decay"],
+                                     spe)
+        state = create_train_state(build_generator(run_opt), build_discriminator(run_opt),
+                                   g_tx, d_tx, device=dev,
+                                   rng=torch.Generator().manual_seed(SEED))
+        step = build_train_step(SpectralTransform(cfg, dev), g_tx, d_tx, **step_kw)
+        first = {n: torch.cat([p.detach().ravel() for p in m.parameters()])
+                 for n, m in (("G", state.generator), ("D", state.discriminator))}
+        K.reset_launch_counts()
+        history = []
+        for i in range(steps):
+            state, metrics = step(state, batches[i % 2])
+            history.append({k: float(v) for k, v in metrics.items()})
+        launches = dict(K.LAUNCHES)
+        moved = {n: float((torch.cat([p.detach().ravel() for p in m.parameters()]) - first[n])
+                          .abs().max())
+                 for n, m in (("G", state.generator), ("D", state.discriminator))}
+        emit({"train_run": {"precision": precision, "batch": TRAIN_BATCH, "steps": steps,
+                            "losses": history, "max_abs_param_move": moved,
+                            "launches": launches, "lr": state.g_opt.param_groups[0]["lr"]}})
+        if not all(math.isfinite(v) for h in history for v in h.values()):
+            raise AssertionError(f"a {precision} train loss is not finite")
+        if not (moved["G"] > 0 and moved["D"] > 0):
+            raise AssertionError(f"a network did not move in {precision}: {moved}")
+        expected = {name: 0 for name in K.LAUNCHES}
+        expected["mdct_spectro"] = 2 * steps
+        if launches != expected:
+            raise AssertionError(f"{precision} train launches {launches}, expected {expected}")
+
+        marks = ("k1", "g_forward", "d_forward", "backward", "optimizer")
+        host = []
+
+        def timed_step(i, mark=None):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            step(state, batches[i % 2], mark=mark)
+            host.append((time.perf_counter() - t0) * 1e3)  # the host's time to enqueue
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end)
+
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(3):
+            timed_step(i)
+        host.clear()
+        times = [timed_step(i) for i in range(20)]
+        host_ms = statistics.median(host)
+        step_ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated()
+        parts = {name: [] for name in marks}
+        for i in range(5):
+            events = {}
+
+            def mark(name, events=events):
+                events[name] = torch.cuda.Event(enable_timing=True)
+                events[name].record()
+
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(state, batches[i % 2], mark=mark)
+            events["optimizer"].synchronize()
+            prev = start
+            for name in marks:
+                parts[name].append(prev.elapsed_time(events[name]))
+                prev = events[name]
+
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(3):
+                step(state, batches[i % 2])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+        # busy time: the union of the device records' intervals (annotations
+        # left out), so overlapping records are not counted twice
+        records = profiling.device_intervals(prof)
+        busy_ms = profiling.busy_time_ms(prof, 3)
+        kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        total_us = sum(e.self_device_time_total for e in kernels)
+        # cuDNN's FFT-tiled convolutions (ROADMAP item A) by their kernels'
+        # names: the FFTs and the complex float32 GEMMs between them
+        fft_us = sum(e.self_device_time_total for e in kernels
+                     if "fft" in e.key.lower() or "cf32" in e.key.lower())
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        timing = {"name": "train_step", "precision": precision, "card": smi,
+                  "batch": TRAIN_BATCH, "ms": step_ms, "ms_min": min(times),
+                  "ms_max": max(times), "samples_per_s": TRAIN_BATCH / step_ms * 1e3,
+                  "host_enqueue_ms": host_ms, "max_memory_allocated_bytes": peak,
+                  "parts_ms": {k: statistics.median(v) for k, v in parts.items()},
+                  "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                  "device_idle_share": 1.0 - busy_ms / wall_ms,
+                  "device_records_per_step": len(records) / 3,
+                  "fft_tiled_share_of_device_time": fft_us / total_us,
+                  "top_kernels": [{"name": e.key[:100], "count": e.count / 3,
+                                   "ms": e.self_device_time_total / 1e3 / 3} for e in top]}
+        emit({"timing": timing})
+        return launches, timing
+
+    train_launches, timing = trainer("f32", opt)
+
+    # 8d. the tail batch: 13 real rows of 20 against a batch of 13 ---------------
     mask = (torch.arange(TRAIN_BATCH, device=dev) < 13).float()
     full = {"lr_audio": lr[:TRAIN_BATCH], "hr_audio": hr[:TRAIN_BATCH]}
     m_losses, m_grads = GT.sgd_grads(opt, g_sd, d_sd, full, dev, sample_mask=mask)
@@ -399,73 +581,15 @@ def train_phase(rng, smi: str, dev: torch.device):
         r = GT.normwise(s_grads[net], m_grads[net], rel)
         tail[net] = {"gradient_max_share_of_bound": r["max_share"], "worst": r["worst"]}
     check("masked tail batch vs smaller batch (losses, max rel)", tail_rel, 1e-3, **tail)
+    del m_grads, s_grads
 
-    # 8d. timings -----------------------------------------------------------------
-    marks = ("k1", "g_forward", "d_forward", "backward", "optimizer")
-
-    host = []
-
-    def timed_step(i, mark=None):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        step(state, batches[i % 2], mark=mark)
-        host.append((time.perf_counter() - t0) * 1e3)  # the host's time to enqueue
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end)
-
-    torch.cuda.reset_peak_memory_stats()
-    for i in range(3):
-        timed_step(i)
-    host.clear()
-    times = [timed_step(i) for i in range(20)]
-    host_ms = statistics.median(host)
-    step_ms = statistics.median(times)
-    peak = torch.cuda.max_memory_allocated()
-    parts = {name: [] for name in marks}
-    for i in range(5):
-        events = {}
-
-        def mark(name, events=events):
-            events[name] = torch.cuda.Event(enable_timing=True)
-            events[name].record()
-
-        start = torch.cuda.Event(enable_timing=True)
-        start.record()
-        step(state, batches[i % 2], mark=mark)
-        events["optimizer"].synchronize()
-        prev = start
-        for name in marks:
-            parts[name].append(prev.elapsed_time(events[name]))
-            prev = events[name]
-
-    from torch.profiler import ProfilerActivity, profile
-
-    from mdctgan_tpu_torch.utils import profiling
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(3):
-            step(state, batches[i % 2])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-    # busy time: the union of the device records' intervals (annotations
-    # left out), so overlapping records are not counted twice
-    records = profiling.device_intervals(prof)
-    busy_ms = profiling.busy_time_ms(prof, 3)
-    timing = {"name": "train_step", "card": smi, "batch": TRAIN_BATCH,
-              "ms": step_ms, "ms_min": min(times), "ms_max": max(times),
-              "samples_per_s": TRAIN_BATCH / step_ms * 1e3,
-              "host_enqueue_ms": host_ms,
-              "max_memory_allocated_bytes": peak,
-              "parts_ms": {k: statistics.median(v) for k, v in parts.items()},
-              "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-              "device_idle_share": 1.0 - busy_ms / wall_ms,
-              "device_records_per_step": len(records) / 3}
-    emit({"timing": timing})
-    return train_launches, timing
+    bf16_launches, bf16_timing = trainer("bf16", opt16)
+    emit({"reading": "train step bf16 against float32, same run",
+          "ms": {"f32": timing["ms"], "bf16": bf16_timing["ms"]},
+          "speedup": timing["ms"] / bf16_timing["ms"],
+          "peak_bytes": {"f32": timing["max_memory_allocated_bytes"],
+                         "bf16": bf16_timing["max_memory_allocated_bytes"]}})
+    return train_launches, timing, bf16_launches, bf16_timing
 
 
 def generate_phase(rng, smi: str, dev: torch.device) -> dict:
@@ -487,8 +611,10 @@ def generate_phase(rng, smi: str, dev: torch.device) -> dict:
         tmp = Path(tmp)
         cuda_id = ["--gpu_ids", str(dev.index or 0)]
 
-        def run(name, dataroot, *extra):
-            return generate_cli.main(GENERATE_FLAGS + [
+        f32_flags = [a for a in GENERATE_FLAGS if a != "--fp16"]
+
+        def run(name, dataroot, *extra, flags=GENERATE_FLAGS):
+            return generate_cli.main(flags + [
                 "--name", name, "--dataroot", str(dataroot), "--checkpoints_dir",
                 str(tmp / "out"), "--load_pretrain", str(tmp / "pretrained"), *extra])
 
@@ -511,7 +637,7 @@ def generate_phase(rng, smi: str, dev: torch.device) -> dict:
         (wavs / "broken.wav").write_bytes(b"RIFF\x00\x00not audio" * 8)
         (tmp / "first.csv").write_text(f"wavs/{names[0]}.wav\n")
 
-        # 9.3 batch mode on the card
+        # 9.3 batch mode on the card, bf16 (--fp16)
         K.reset_launch_counts()
         card = run("card", wavs, *cuda_id)
         launches = dict(K.LAUNCHES)
@@ -537,14 +663,17 @@ def generate_phase(rng, smi: str, dev: torch.device) -> dict:
         if launches != expected:
             raise AssertionError(f"generate launches {launches}, expected {expected}")
 
-        # 9.4 the 1.0 s file on the CPU
-        cpu = run("cpu", tmp / "first.csv", "--gpu_ids", "-1", "--batchSize", "2")
-        got, ref = card["rows"][0], cpu["rows"][0]
-        sr = native.read(str(tmp / "out" / "card" / got["output"]))[0]
+        # 9.4 the 1.0 s file in float32 on the card and on the CPU (held), and
+        # in bf16 on the CPU against 9.3's card row (read)
+        card32 = run("card_f32", tmp / "first.csv", *cuda_id, flags=f32_flags)
+        cpu = run("cpu", tmp / "first.csv", "--gpu_ids", "-1", "--batchSize", "2",
+                  flags=f32_flags)
+        got, ref = card32["rows"][0], cpu["rows"][0]
+        sr = native.read(str(tmp / "out" / "card_f32" / got["output"]))[0]
         sr_ref = native.read(str(tmp / "out" / "cpu" / ref["output"]))[0]
         scale = float(np.abs(sr_ref).max())
-        check("generate SR WAV card vs CPU", float(np.abs(sr - sr_ref).max()), 2e-3 * scale,
-              file=names[0], max_abs_ref=scale, samples=len(sr_ref))
+        check("generate SR WAV card vs CPU (float32)", float(np.abs(sr - sr_ref).max()),
+              2e-3 * scale, file=names[0], max_abs_ref=scale, samples=len(sr_ref))
         check("generate LSD card vs CPU (relative)",
               abs(got["lsd"] - ref["lsd"]) / ref["lsd"], 1e-3, card=got["lsd"], cpu=ref["lsd"])
         check("generate MSE card vs CPU (relative)",
@@ -552,6 +681,14 @@ def generate_phase(rng, smi: str, dev: torch.device) -> dict:
         for k in ("snr_sr", "snr_lr", "snr_seg"):
             check(f"generate {k} card vs CPU (dB)", abs(got[k] - ref[k]), 0.01,
                   card=got[k], cpu=ref[k])
+        cpu16 = run("cpu_bf16", tmp / "first.csv", "--gpu_ids", "-1", "--batchSize", "2")
+        sr16 = native.read(str(tmp / "out" / "card" / card["rows"][0]["output"]))[0]
+        sr16_cpu = native.read(str(tmp / "out" / "cpu_bf16" / cpu16["rows"][0]["output"]))[0]
+        emit({"reading": "generate bf16 SR WAV card vs CPU, and bf16 vs float32 on the card",
+              "card_vs_cpu_max_abs": float(np.abs(sr16 - sr16_cpu).max()),
+              "bf16_vs_f32_max_abs": float(np.abs(sr16 - sr).max()), "max_abs_f32": scale,
+              "lsd": {"card_bf16": card["rows"][0]["lsd"], "cpu_bf16": cpu16["rows"][0]["lsd"],
+                      "card_f32": got["lsd"]}})
 
         # 9.5 the JAX package's default generator: netG global, transconv up
         g_opt = defaults()
@@ -579,42 +716,46 @@ def generate_phase(rng, smi: str, dev: torch.device) -> dict:
               "output_max_abs_err": max_err(torch.tanh(card_logits[True]), torch.tanh(cpu_logits))})
         del card_net, cpu_net, card_logits
 
-        # 9.6 the batch-mode run, timed after a warm-up file; its set-up and
-        # each file are this run's own, as ``main`` returns them
-        run("warmup", tmp / "first.csv", *cuda_id)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        timed = run("timed", wavs, *cuda_id)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        peak = torch.cuda.max_memory_allocated()
-        per_file = {Path(p).stem: ms for p, ms in timed["file_ms"].items()}
-        # read, not asserted: a second run at api.upsample's batch, where
-        # each file pads to 8 segments, not 16
-        per_file_8 = {Path(p).stem: ms for p, ms in run(
-            "batch8", wavs, *cuda_id, "--batchSize", str(MAIN_BATCH))["file_ms"].items()}
+        # 9.6 the batch-mode run, bf16 then float32, each timed after a
+        # warm-up file; its set-up and each file are this run's own, as
+        # ``main`` returns them
         audio_s = sum(GENERATE_SECONDS)
-        emit({"timing": {"name": "generate_batch_mode", "card": smi, "files": len(names),
-                         "audio_s": audio_s, "batch": bs, "wall_ms": wall_ms,
-                         "ms_per_audio_s": wall_ms / audio_s,
-                         "files_per_s": len(names) / wall_ms * 1e3,
-                         "max_memory_allocated_bytes": peak,
-                         "setup_ms": timed["setup_ms"], "file_ms": per_file,
-                         "setup_share": timed["setup_ms"] / wall_ms,
-                         "files_ms_per_audio_s": sum(per_file.values()) / audio_s,
-                         f"second_run_file_ms_batch{MAIN_BATCH}": per_file_8}})
+        for precision, flags in (("bf16", GENERATE_FLAGS), ("f32", f32_flags)):
+            run(f"warmup_{precision}", tmp / "first.csv", *cuda_id, flags=flags)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            timed = run(f"timed_{precision}", wavs, *cuda_id, flags=flags)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            per_file = {Path(p).stem: ms for p, ms in timed["file_ms"].items()}
+            # read, not asserted: a second run at api.upsample's batch, where
+            # each file pads to 8 segments, not 16
+            per_file_8 = {Path(p).stem: ms for p, ms in run(
+                f"batch8_{precision}", wavs, *cuda_id, "--batchSize", str(MAIN_BATCH),
+                flags=flags)["file_ms"].items()}
+            emit({"timing": {"name": "generate_batch_mode", "precision": precision,
+                             "card": smi, "files": len(names), "audio_s": audio_s,
+                             "batch": bs, "wall_ms": wall_ms,
+                             "ms_per_audio_s": wall_ms / audio_s,
+                             "files_per_s": len(names) / wall_ms * 1e3,
+                             "max_memory_allocated_bytes": peak,
+                             "setup_ms": timed["setup_ms"], "file_ms": per_file,
+                             "setup_share": timed["setup_ms"] / wall_ms,
+                             "files_ms_per_audio_s": sum(per_file.values()) / audio_s,
+                             f"second_run_file_ms_batch{MAIN_BATCH}": per_file_8}})
 
         # 9.7 the in-flight window of api.serve_segments: one 60 s file (6
-        # batches of 16) with 1 batch in flight (a synchronous loop) and 2,
-        # alternated; its time is read, its SR must not change
+        # batches of 16, bf16) with 1 batch in flight (a synchronous loop)
+        # and 2, alternated; its time is read, its SR must not change
         long_dir = tmp / "long"
         long_dir.mkdir()
         native.write_wav16(str(long_dir / "speech_60s.wav"),
                            speech_like(rng, LONG_SECONDS, 48000), 48000)
         window, outputs = {1: [], 2: []}, {}
         default = api.IN_FLIGHT
-        for n in (1, 2, 2, 1, 1, 2):
+        for n in (1, 2, 2, 1):
             api.IN_FLIGHT = n
             r = run(f"in_flight_{n}", long_dir, *cuda_id)
             window[n].append(next(iter(r["file_ms"].values())))
@@ -639,7 +780,8 @@ def train_cli_phase(smi: str, dev: torch.device, bare_step: dict,
     import contextlib
     import io
 
-    from mdctgan_tpu_torch import generate_cli, train_cli
+    from mdctgan_tpu_torch import export_torch_cli, generate_cli, train_cli
+    from mdctgan_tpu_torch.data import native
     from mdctgan_tpu_torch.data.dataset import AudioDataset
     from mdctgan_tpu_torch.data.pipeline import InputPipeline, make_degrade_fn
     from mdctgan_tpu_torch.device import float32_policy
@@ -647,7 +789,7 @@ def train_cli_phase(smi: str, dev: torch.device, bare_step: dict,
     from mdctgan_tpu_torch.models.generator import build_generator
     from mdctgan_tpu_torch.ops import mdct_kernels as K
     from mdctgan_tpu_torch.ops.features import SpectralTransform
-    from mdctgan_tpu_torch.options import TrainOptions, spectral_config_from_opt
+    from mdctgan_tpu_torch.options import TrainOptions, as_dict, spectral_config_from_opt
     from mdctgan_tpu_torch.train.checkpoint import CheckpointManager, state_digest
     from mdctgan_tpu_torch.train.schedule import make_optimizers, pix2pixhd_lr_schedule
     from mdctgan_tpu_torch.train.state import create_train_state
@@ -752,6 +894,28 @@ def train_cli_phase(smi: str, dev: torch.device, bare_step: dict,
             raise AssertionError(f"generate from the port's checkpoint: {gen_run['rungs']}, "
                                  f"{gen_launches}")
 
+        # 10g. train -> export -> generate: the run's ckpt/ exported to
+        # reference .pth files (no device work), served strictly, the same SR
+        # as serving the ckpt/ (10e) within phase 9's waveform bound
+        t0 = time.perf_counter()
+        paths = export_torch_cli.main(flags + cuda_id + [
+            "--load_pretrain", str(out), "--export_dir", str(tmp / "exported"),
+            "--checkpoints_dir", str(tmp / "gen")])
+        export_ms = (time.perf_counter() - t0) * 1e3
+        pth_run = generate_cli.main(flags + cuda_id + [
+            "--load_pretrain", str(tmp / "exported"), "--checkpoints_dir", str(tmp / "gen"),
+            "--name", "gen_pth",
+            "--dataroot", str(next((tmp / "corpus" / "wav").glob("00000.wav")))])
+        if pth_run["rungs"] != []:
+            raise AssertionError(f"the exported .pth loaded through rungs {pth_run['rungs']}")
+        sr_ckpt = native.read(str(tmp / "gen" / "gen" / "sr_audio.wav"))[0]
+        sr_pth = native.read(str(tmp / "gen" / "gen_pth" / "sr_audio.wav"))[0]
+        scale = float(np.abs(sr_ckpt).max())
+        check("generate from the exported .pth vs from the ckpt/ (SR WAV)",
+              float(np.abs(sr_pth - sr_ckpt).max()), 2e-3 * scale, max_abs_ref=scale,
+              files=[Path(p).name for p in paths], export_ms=export_ms,
+              pth_bytes=sum(Path(p).stat().st_size for p in paths))
+
         # 10c. resume: the restored state is the one the first run ended with
         out_text = io.StringIO()
         with contextlib.redirect_stdout(out_text):
@@ -768,7 +932,8 @@ def train_cli_phase(smi: str, dev: torch.device, bare_step: dict,
         del resumed
 
         # 10d. the resume trajectory on the card, on fixed batches: 2 steps,
-        # save, restore into a fresh state, 2 steps, against 4 steps
+        # save, restore into a fresh state, 2 steps, against 4 steps; in
+        # float32 and under the run's bf16
         fixed = AudioDataset(str(tmp / "corpus" / "train.csv"), cfg.segment_length,
                              seed=opt.seed, serial=True)
         batches = []
@@ -780,40 +945,55 @@ def train_cli_phase(smi: str, dev: torch.device, bare_step: dict,
         step = build_train_step(SpectralTransform(cfg, dev), g_tx, d_tx,
                                 n_layers_d=opt.n_layers_D, num_d=opt.num_D)
 
-        def fresh(seed):
-            return create_train_state(build_generator(opt), build_discriminator(opt), g_tx,
-                                      d_tx, device=dev, rng=torch.Generator().manual_seed(seed))
-
         def losses_of(state, todo):
             return [{k: float(v) for k, v in step(state, b)[1].items()} for b in todo]
-
-        # The uninterrupted run saves after its step 2 and goes on (a save
-        # changes nothing); the resumed run restores that save into a
-        # fresh state and takes steps 3 and 4 again.  Both start step 3
-        # from the same bits, so they differ only by what the card does not
-        # repeat within 2 steps (cuDNN's algorithms, atomics in backward).
-        mgr = CheckpointManager(str(tmp / "trajectory"))
-        whole = fresh(SEED)
-        head = losses_of(whole, batches)
-        mgr.save(whole, epoch=2)
-        tail = losses_of(whole, batches)
-        del whole
-        again = fresh(SEED + 1)
-        mgr.restore(again)
-        resumed = losses_of(again, batches)
-        mgr.close()
-        del again
-        other = losses_of(fresh(SEED), batches * 2)
 
         def rel(a, b):
             return max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
                        for x, y in zip(a, b) for k in y)
 
-        check("resume trajectory on the card: steps 3-4 after save + restore vs uninterrupted "
-              "(losses, rel)", rel(resumed, tail), 1e-3, batch=bs,
-              step3_rel=rel(resumed[:1], tail[:1]), step4_rel=rel(resumed[1:], tail[1:]),
-              spread_of_two_uninterrupted_runs_4_steps=rel(other, head + tail),
-              spread_after_2_steps=rel(other[:2], head))
+        # The uninterrupted run saves after its step 2 and goes on (a save
+        # changes nothing); the resumed run restores that save into a
+        # fresh state and takes steps 3 and 4 again.  Both start step 3
+        # from the same bits, so step 3's losses are equal exactly.  The
+        # card need not repeat step 3's backward bit for bit (the tensors
+        # that differ after step 4 are counted), so step 4 may differ by
+        # that alone: float32 is held to 1e-3; under bf16 the losses of one
+        # step repeated from the same bits read up to 2.8e-3 apart
+        # (spread_after_2_steps), under one bf16 step (2^-8), and step 4 is
+        # held to two (2^-7).
+        for fp16, step4_bound in ((False, 1e-3), (True, 2.0 ** -7)):
+            net_opt = {**as_dict(opt), "fp16": fp16}
+
+            def fresh(seed):
+                return create_train_state(
+                    build_generator(net_opt), build_discriminator(net_opt), g_tx, d_tx,
+                    device=dev, rng=torch.Generator().manual_seed(seed))
+
+            mgr = CheckpointManager(str(tmp / f"trajectory_fp16_{fp16}"))
+            whole = fresh(SEED)
+            head = losses_of(whole, batches)
+            mgr.save(whole, epoch=2)
+            tail = losses_of(whole, batches)
+            again = fresh(SEED + 1)
+            mgr.restore(again)
+            resumed = losses_of(again, batches)
+            mgr.close()
+            ends = state_digest(whole), state_digest(again)
+            differ = sum(ends[0][k] != ends[1].get(k) for k in ends[0])
+            del whole, again
+            other = losses_of(fresh(SEED), batches * 2)
+            spread = {"spread_of_two_uninterrupted_runs_4_steps": rel(other, head + tail),
+                      "spread_after_2_steps": rel(other[:2], head),
+                      "tensors_differing_after_step_4": differ}
+            name = "bf16" if fp16 else "f32"
+            check(f"resume trajectory on the card ({name}): step 3 after save + restore vs "
+                  "uninterrupted (losses, rel)", rel(resumed[:1], tail[:1]), 0.0, batch=bs,
+                  **spread)
+            check(f"resume trajectory on the card ({name}): step 4 after save + restore vs "
+                  "uninterrupted (losses, rel)", rel(resumed[1:], tail[1:]), step4_bound,
+                  batch=bs, **spread)
+            torch.cuda.empty_cache()
 
         # 10f. numbers
         profiled = set(range(opt.profile_step + 1, opt.profile_step + opt.profile_nsteps + 1))
@@ -1016,6 +1196,49 @@ def drive() -> int:
     scale = float(np.abs(ref).max())
     check("upsample card vs CPU", float(np.abs(outs[0] - ref).max()), 2e-3 * scale,
           request_s=len(requests[0]) / 16000, max_abs_ref=scale)
+    del cpu_model
+
+    # 6b. the bf16 policy (--fp16): the flagship LocalEnhancer on the card and
+    # on the CPU against the float64 generator, on phase 5's input --------------
+    # The card's bf16 logits are held to BF16_FACTOR times the CPU's bf16
+    # error against float64, by max and by RMS; their distance from the
+    # card's float32 logits is read.
+    opt16 = dict(opt, fp16=True)
+    model16 = api.create_model(opt16, device="cuda", state_dict=state)
+    cpu16 = build_generator(opt16)
+    cpu16.load_state_dict(state, strict=True)
+    truth_gen = build_generator(opt)
+    truth_gen.load_state_dict(state, strict=True)
+    with torch.inference_mode():
+        card16 = model16.generator.logits(g_in).cpu()
+        cpu16_logits = cpu16.eval().logits(g_in.cpu())
+        truth = truth_gen.double().eval().logits(g_in.cpu().double())
+    del cpu16, truth_gen
+    if not (card16.dtype == cpu16_logits.dtype == torch.float32):
+        raise AssertionError(f"bf16 logits come back as {card16.dtype}")
+    bf16_against_truth("flagship LocalEnhancer bf16 logits, card and CPU vs float64",
+                       {"logits": card16}, {"logits": cpu16_logits}, {"logits": truth})
+    emit({"reading": "flagship LocalEnhancer bf16 vs float32 on the card (the JAX package "
+                     "allows 0.1 on the output at a tiny width)",
+          "output_max_abs_diff": max_err(torch.tanh(card16), torch.tanh(card[False])),
+          "logits_max_abs_diff": max_err(card16, card[False]), "batch": 2})
+
+    K.reset_launch_counts()
+    outs16 = [api.upsample(a, 16000, model16, is_lr_input=True, gen_overlap=512,
+                           batch_size=MAIN_BATCH) for a in requests]
+    launches16 = dict(K.LAUNCHES)
+    emit({"serving_fp16_launches": launches16})
+    for name, n in launches16.items():
+        if name.endswith("_dense") and n != 0:
+            raise AssertionError(f"bf16 serving launched {name} {n} times")
+        if not name.endswith("_dense") and n <= 0:
+            raise AssertionError(f"the bf16 serving path never launched {name}")
+    for a, out, out32 in zip(requests, outs16, outs):
+        if out.shape != out32.shape or not np.isfinite(out).all():
+            raise AssertionError(f"bad bf16 output {out.shape} for a {len(a)}-sample request")
+    emit({"reading": "upsample bf16 vs float32 on the card (random weights, undamped head)",
+          "max_abs_diff": [float(np.abs(o - r).max()) for o, r in zip(outs16, outs)],
+          "max_abs_f32": [float(np.abs(r).max()) for r in outs]})
 
     # 7. timings -------------------------------------------------------------
     def bound_ms(flops: float, nbytes: float):
@@ -1068,47 +1291,54 @@ def drive() -> int:
                      "eager_ms": eager_ms(lambda: tiny.add_(1.0))}})
 
     x = torch.from_numpy(np.tile(lr_clip, (4, 1))).to(dev)
-    with torch.inference_mode():
-        lr_spec, _ = model.transform.to_spectro(x)
-        g_in = model.transform.g_input(lr_spec)
-        gen_ms = time_ms(lambda: model.generator(g_in), runs=20, inner=1)
-    emit({"timing": {"name": "generator_forward", "batch": MAIN_BATCH,
-                     "ms": gen_ms, "ms_per_segment": gen_ms / MAIN_BATCH}})
     audio = requests[2]
-    api.upsample(audio, 16000, model, is_lr_input=True, gen_overlap=512)
-    walls = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        api.upsample(audio, 16000, model, is_lr_input=True, gen_overlap=512,
-                     batch_size=MAIN_BATCH)
-        walls.append((time.perf_counter() - t0) * 1e3)
-    wall = statistics.median(walls)
-    emit({"timing": {"name": "upsample_end_to_end", "request_s": len(audio) / 16000,
-                     "ms": wall, "ms_per_audio_s": wall / (len(audio) / 16000)}})
+    for precision, m in (("f32", model), ("bf16", model16)):
+        with torch.inference_mode():
+            lr_spec, _ = m.transform.to_spectro(x)
+            g_in = m.transform.g_input(lr_spec)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            gen_ms = time_ms(lambda: m.generator(g_in), runs=20, inner=1)
+        emit({"timing": {"name": "generator_forward", "precision": precision, "card": smi,
+                         "batch": MAIN_BATCH, "ms": gen_ms, "ms_per_segment": gen_ms / MAIN_BATCH,
+                         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}})
+        api.upsample(audio, 16000, m, is_lr_input=True, gen_overlap=512)
+        walls = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            api.upsample(audio, 16000, m, is_lr_input=True, gen_overlap=512,
+                         batch_size=MAIN_BATCH)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = statistics.median(walls)
+        emit({"timing": {"name": "upsample_end_to_end", "precision": precision, "card": smi,
+                         "request_s": len(audio) / 16000, "ms": wall,
+                         "ms_per_audio_s": wall / (len(audio) / 16000)}})
+    del model16
 
     # 8. training ------------------------------------------------------------
-    train_launches, step_timing = train_phase(rng, smi, dev)
+    train_launches, step_timing, train16_launches, step16_timing = train_phase(rng, smi, dev)
 
     # 9. the generate entry point ----------------------------------------------
     generate_launches = generate_phase(rng, smi, dev)
 
     # 10. the train entry point --------------------------------------------------
-    train_cli_launches = train_cli_phase(smi, dev, step_timing)
+    train_cli_launches = train_cli_phase(smi, dev, step16_timing)
 
     replaces = {
         "mdct_spectro": "mdctgan_tpu/ops/pallas_mdct.py:80",
         "imdct_audio": "mdctgan_tpu/ops/pallas_mdct.py:185",
     }
     numbers = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    path_launches = {"serving": launches, "train": train_launches,
+    path_launches = {"serving": launches, "serving_fp16": launches16,
+                     "train": train_launches, "train_fp16": train16_launches,
                      "generate": generate_launches, "train_cli": train_cli_launches}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"mdctgan_tpu_torch/csrc/{name.removesuffix('_dense')}.cu",
          "replaces": replaces[name.removesuffix("_dense")],
-         "launches": launches[name], "train_launches": train_launches[name],
-         "generate_launches": generate_launches[name],
-         "train_cli_launches": train_cli_launches[name],
+         "launches": launches[name],
+         **{f"{path}_launches": path_launches[path][name] for path in path_launches
+            if path != "serving"},
          "max_abs_err": errs[name],
          **{k: rows[(name, MAIN_BATCH)][k] for k in numbers},
          "paths": {path: {"batch": b, "launches": path_launches[path][name],

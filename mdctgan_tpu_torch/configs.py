@@ -8,8 +8,9 @@ attention blocks (6 heads x 128), 3 local resblocks, resconv down,
 interpolate up, fit_residual; the multiscale discriminator of ndf 64 with
 3 layers at 3 scales; and the optimizer of ``train.sh``: Adam at lr 1.5e-4,
 beta1 0.5, 60 epochs constant and 60 decaying (``train.sh`` trains at
-batch 20).  ``train.sh`` also sets ``--fp16``, which the port does not
-train yet (bf16 autocast); without it the flagship trains in float32.
+batch 20).  ``train.sh`` and ``generate_audio.sh`` also set ``--fp16``,
+the bf16 policy; this dict leaves it out, so the flagship built from it
+computes in float32, and a caller adds ``fp16=True`` for bf16.
 """
 
 from __future__ import annotations

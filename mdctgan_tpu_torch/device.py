@@ -34,12 +34,20 @@ def float32_policy(allow_tf32: bool = False) -> Iterator[None]:
     digits.  The port is held against the float32 reference at absolute
     bounds of 5e-4 (generator) and 2e-3 relative (waveform, after a sinh
     denormalization whose slope reaches ~575x), so its entry points run
-    under this policy with TF32 off.  A faster precision (bf16 autocast) is
-    a later, measured change, not a default."""
+    under this policy with TF32 off.
+
+    The policy also turns off cuBLAS's reduced-precision reductions for
+    bf16 matmuls (``allow_bf16_reduced_precision_reduction``, on by
+    default), which may round partial sums to bf16: under ``--fp16`` the
+    JAX package accumulates every bf16 product in float32 and rounds only
+    the output."""
     matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
-    saved = matmul.allow_tf32, cudnn.allow_tf32
+    saved = (matmul.allow_tf32, cudnn.allow_tf32,
+             matmul.allow_bf16_reduced_precision_reduction)
     matmul.allow_tf32 = cudnn.allow_tf32 = allow_tf32
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        matmul.allow_tf32, cudnn.allow_tf32 = saved
+        (matmul.allow_tf32, cudnn.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = saved

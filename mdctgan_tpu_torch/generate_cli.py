@@ -20,8 +20,10 @@ serves the whole corpus with one model load: ``<stem>_sr.wav`` per file
 file that cannot be read is skipped.
 
 The model runs on ``cuda:<gpu_ids>`` (default 0; raises without CUDA);
-``--gpu_ids -1`` asks for the CPU.  Weights come from
-``<load_pretrain>/<which_epoch>_net_G.pth`` in the reference's key layout.
+``--gpu_ids -1`` asks for the CPU.  ``--fp16`` serves with the bf16
+generator (``models/layers.py``); the transforms stay float32.  Weights
+come from ``<load_pretrain>/<which_epoch>_net_G.pth`` in the reference's
+key layout, or from the ``ckpt/`` of a run of the port's train CLI.
 """
 
 from __future__ import annotations

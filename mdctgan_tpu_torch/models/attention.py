@@ -10,6 +10,11 @@ Layout, as in the reference: the qkv channel axis splits as
 ``(3, heads, dim_head)`` with the 3 outermost, tokens are the row-major
 flattening of (H, W), and the attention output returns to channels as
 ``(heads, dim_head)`` with heads outermost.
+
+Under a compute ``dtype`` (the bf16 policy) only the 1x1 convolutions run
+in it, as in the JAX package: the qkv projection is cast back to float32
+before the attention math, and every BatchNorm normalizes its input in
+float32, so the block's output is float32.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+
+from mdctgan_tpu_torch.models.layers import conv_forward, lift
 
 
 class AbsPosEmb2D(nn.Module):
@@ -39,16 +46,17 @@ class Attention2D(nn.Module):
     """Multi-head self-attention over a (B, C, H, W) feature map."""
 
     def __init__(self, dim: int, fmap_size: Tuple[int, int], heads: int,
-                 dim_head: int):
+                 dim_head: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.heads, self.dim_head = heads, dim_head
+        self.heads, self.dim_head, self.compute_dtype = heads, dim_head, dtype
         self.to_qkv = nn.Conv2d(dim, 3 * heads * dim_head, 1, bias=False)
         self.pos_emb = AbsPosEmb2D(fmap_size, dim_head)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, h, w = x.shape
         heads, dh = self.heads, self.dim_head
-        qkv = self.to_qkv(x).reshape(b, 3, heads, dh, h * w)
+        qkv = lift(conv_forward(self.to_qkv, x, self.compute_dtype))
+        qkv = qkv.reshape(b, 3, heads, dh, h * w)
         q, k, v = (qkv[:, i].transpose(-1, -2) for i in range(3))  # b,heads,n,d
         q = q * (dh ** -0.5)
         sim = torch.matmul(q, k.transpose(-1, -2)) + self.pos_emb(q)
@@ -68,7 +76,8 @@ class _BN2d(nn.Module):
     it is 1, so a padded tail batch normalizes as the smaller batch would.
     The running variance tracks the Bessel-corrected n/(n-1) estimate, with
     n = sum(mask)*H*W, as ``torch.nn.BatchNorm2d`` does.  Stock
-    ``BatchNorm2d`` cannot mask, hence this module."""
+    ``BatchNorm2d`` cannot mask, hence this module.  A bf16 input is
+    normalized in float32 and the output is float32."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -79,6 +88,7 @@ class _BN2d(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = lift(x)
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
@@ -119,8 +129,10 @@ class BottleBlock(nn.Module):
     with a 1x1 conv + BN + relu shortcut when the width changes."""
 
     def __init__(self, dim: int, dim_out: int, fmap_size: Tuple[int, int],
-                 proj_factor: int = 4, heads: int = 4, dim_head: int = 128):
+                 proj_factor: int = 4, heads: int = 4, dim_head: int = 128,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = dtype
         self.has_shortcut = dim != dim_out
         if self.has_shortcut:
             self.shortcut_conv = nn.Conv2d(dim, dim_out, 1, bias=False)
@@ -129,18 +141,20 @@ class BottleBlock(nn.Module):
         inner = heads * dim_head
         self.proj_in = nn.Conv2d(dim, attn_dim_in, 1, bias=False)
         self.bn1 = BatchNorm(attn_dim_in)
-        self.attn = Attention2D(attn_dim_in, fmap_size, heads, dim_head)
+        self.attn = Attention2D(attn_dim_in, fmap_size, heads, dim_head, dtype)
         self.bn2 = BatchNorm(inner)
         self.proj_out = nn.Conv2d(inner, dim_out, 1, bias=False)
         self.bn3 = BatchNorm(dim_out)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dtype = self.compute_dtype
         shortcut = x
         if self.has_shortcut:
-            shortcut = torch.relu(self.shortcut_bn(self.shortcut_conv(x), mask))
-        h = torch.relu(self.bn1(self.proj_in(x), mask))
+            shortcut = torch.relu(self.shortcut_bn(
+                conv_forward(self.shortcut_conv, x, dtype), mask))
+        h = torch.relu(self.bn1(conv_forward(self.proj_in, x, dtype), mask))
         h = torch.relu(self.bn2(self.attn(h), mask))
-        h = self.bn3(self.proj_out(h), mask)
+        h = self.bn3(conv_forward(self.proj_out, h, dtype), mask)
         return torch.relu(h + shortcut)
 
 
@@ -149,12 +163,12 @@ class BottleStack(nn.Module):
 
     def __init__(self, dim: int, dim_out: int, fmap_size: Tuple[int, int],
                  num_layers: int = 3, proj_factor: int = 4, heads: int = 4,
-                 dim_head: int = 128):
+                 dim_head: int = 128, dtype: Optional[torch.dtype] = None):
         super().__init__()
         for i in range(num_layers):
             self.add_module(f"block{i}", BottleBlock(
                 dim if i == 0 else dim_out, dim_out, fmap_size, proj_factor,
-                heads, dim_head))
+                heads, dim_head, dtype))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``mask`` (B,) 0/1 restricts every BatchNorm's train-mode

@@ -15,6 +15,13 @@ downsample and the ``interpolate``/``transconv`` upsample.  Not ported yet
 (they raise ``NotImplementedError``): local attention (``n_attn_local > 0``)
 and ``n_local_enhancers > 1``.  Each generator keeps its configuration as
 attributes, which ``train/import_torch.generator_entries_for`` reads.
+
+``dtype`` (``torch.bfloat16`` under ``fp16``) is the compute dtype of every
+convolution (``models/layers.py``); the parameters stay float32.  The
+activations between convolutions are bf16 up to the attention stack, whose
+float32 output keeps the global resblocks after it on a float32 residual
+stream until the first upsample; the 7x7 head's output is cast to float32
+before the tanh, so ``forward`` and ``logits`` return float32.
 """
 
 from __future__ import annotations
@@ -33,24 +40,25 @@ from mdctgan_tpu_torch.models.layers import (
     ResnetBlock,
     avg_pool_3x3_s2,
     instance_norm_relu,
+    lift,
     reflect_pad,
 )
 from mdctgan_tpu_torch.options import as_dict
 
 
-def _downsample_layer(kind: str, in_f: int, out_f: int) -> nn.Module:
+def _downsample_layer(kind: str, in_f: int, out_f: int, dtype=None) -> nn.Module:
     if kind == "conv":
-        return Conv(in_f, out_f, 3, 2, 1)
+        return Conv(in_f, out_f, 3, 2, 1, dtype=dtype)
     if kind == "resconv":
-        return ConvResBlock(in_f, out_f, 3, 2, 1)
+        return ConvResBlock(in_f, out_f, 3, 2, 1, dtype=dtype)
     raise NotImplementedError(f"downsample layer [{kind}] is not found")
 
 
-def _upsample_layer(kind: str, in_f: int, out_f: int) -> nn.Module:
+def _upsample_layer(kind: str, in_f: int, out_f: int, dtype=None) -> nn.Module:
     if kind == "transconv":
-        return ConvTransposed(in_f, out_f)
+        return ConvTransposed(in_f, out_f, dtype=dtype)
     if kind == "interpolate":
-        return InterpolateUpsample(in_f, out_f)
+        return InterpolateUpsample(in_f, out_f, dtype=dtype)
     raise NotImplementedError(f"upsample layer [{kind}] is not found")
 
 
@@ -73,43 +81,44 @@ class GlobalGenerator(nn.Module):
         downsample_type: str = "conv",
         upsample_type: str = "interpolate",
         include_head: bool = True,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.n_downsampling, self.n_blocks, self.n_attn = n_downsampling, n_blocks, n_attn
         self.downsample_type, self.upsample_type = downsample_type, upsample_type
-        self.include_head = include_head
-        self.stem = Conv(input_nc, ngf, 7)
+        self.include_head, self.compute_dtype = include_head, dtype
+        self.stem = Conv(input_nc, ngf, 7, dtype=dtype)
         for i in range(n_downsampling):
             mult = 2 ** i
             self.add_module(f"down{i}", _downsample_layer(
-                downsample_type, ngf * mult, ngf * mult * 2))
+                downsample_type, ngf * mult, ngf * mult * 2, dtype))
         mult = 2 ** n_downsampling
         self.attn = None
         if n_attn > 0:
             self.attn = BottleStack(
                 ngf * mult, ngf * mult,
                 (input_size[0] // mult, input_size[1] // mult),
-                n_attn, proj_factor, heads, dim_head)
+                n_attn, proj_factor, heads, dim_head, dtype)
         for i in range(n_blocks):
-            self.add_module(f"res{i}", ResnetBlock(ngf * mult))
+            self.add_module(f"res{i}", ResnetBlock(ngf * mult, dtype))
         for i in range(n_downsampling):
             mult = 2 ** (n_downsampling - i)
             self.add_module(f"up{i}", _upsample_layer(
-                upsample_type, ngf * mult, ngf * mult // 2))
+                upsample_type, ngf * mult, ngf * mult // 2, dtype))
         if include_head:
-            self.head = Conv(ngf, output_nc, 7)
+            self.head = Conv(ngf, output_nc, 7, dtype=dtype)
 
     def forward(self, x: torch.Tensor,
                 sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.features(x, sample_mask)
         if not self.include_head:
             return h
-        return torch.tanh(self.head(reflect_pad(h, 3)))
+        return torch.tanh(lift(self.head(reflect_pad(h, 3))))
 
     def logits(self, x: torch.Tensor,
                sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The output before its tanh (``include_head`` only)."""
-        return self.head(reflect_pad(self.features(x, sample_mask), 3))
+        return lift(self.head(reflect_pad(self.features(x, sample_mask), 3)))
 
     def features(self, x: torch.Tensor,
                  sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -151,6 +160,7 @@ class LocalEnhancer(nn.Module):
         dim_head_g: int = 128,
         downsample_type: str = "conv",
         upsample_type: str = "interpolate",
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         if n_local_enhancers != 1:
@@ -161,19 +171,20 @@ class LocalEnhancer(nn.Module):
         self.n_attn_global, self.n_attn_local = n_attn_global, n_attn_local
         self.n_local_enhancers = n_local_enhancers
         self.downsample_type, self.upsample_type = downsample_type, upsample_type
+        self.compute_dtype = dtype
         ngf_l = ngf
         self.add_module("global", GlobalGenerator(
             input_nc, output_nc, ngf * 2, n_downsample_global, n_blocks_global,
             n_attn_global, (input_size[0] // 2, input_size[1] // 2),
             proj_factor_g, heads_g, dim_head_g, downsample_type, upsample_type,
-            include_head=False))
-        self.local_stem = Conv(input_nc, ngf_l, 7)
-        self.local_down = _downsample_layer(downsample_type, ngf_l, ngf_l * 2)
+            include_head=False, dtype=dtype))
+        self.local_stem = Conv(input_nc, ngf_l, 7, dtype=dtype)
+        self.local_down = _downsample_layer(downsample_type, ngf_l, ngf_l * 2, dtype)
         self.n_blocks_local = n_blocks_local
         for i in range(n_blocks_local):
-            self.add_module(f"local_res{i}", ResnetBlock(ngf_l * 2))
-        self.local_up = _upsample_layer(upsample_type, ngf_l * 2, ngf_l)
-        self.local_head = Conv(ngf_l, output_nc, 7)
+            self.add_module(f"local_res{i}", ResnetBlock(ngf_l * 2, dtype))
+        self.local_up = _upsample_layer(upsample_type, ngf_l * 2, ngf_l, dtype)
+        self.local_head = Conv(ngf_l, output_nc, 7, dtype=dtype)
 
     @property
     def coarse(self) -> GlobalGenerator:
@@ -188,7 +199,7 @@ class LocalEnhancer(nn.Module):
         for i in range(self.n_blocks_local):
             h = getattr(self, f"local_res{i}")(h)
         h = instance_norm_relu(self.local_up(h))
-        return self.local_head(reflect_pad(h, 3))
+        return lift(self.local_head(reflect_pad(h, 3)))
 
     def forward(self, x: torch.Tensor,
                 sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -197,7 +208,8 @@ class LocalEnhancer(nn.Module):
 
 def build_generator(opt) -> nn.Module:
     """Generator from an options dict or a parsed namespace (keys and
-    defaults of the reference ``build_generator``)."""
+    defaults of the reference ``build_generator``); ``fp16`` computes in
+    bf16."""
     get = as_dict(opt).get
     input_size = (get("bins", 128), get("n_fft", 512) // 2)
     kind = get("netG", "global")
@@ -208,9 +220,8 @@ def build_generator(opt) -> nn.Module:
         input_size=input_size,
         downsample_type=get("downsample_type", "conv"),
         upsample_type=get("upsample_type", "transconv"),
+        dtype=torch.bfloat16 if get("fp16", False) else None,
     )
-    if get("fp16", False):
-        raise NotImplementedError("the bf16 policy (fp16) is not ported")
     if kind == "global":
         return GlobalGenerator(
             n_downsampling=get("n_downsample_global", 3),

@@ -14,11 +14,9 @@ from typing import List, Optional
 
 import torch
 
+from mdctgan_tpu_torch.models.layers import lift
+
 Features = List[List[torch.Tensor]]
-
-
-def _lift(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _wmean(x: torch.Tensor, w: Optional[torch.Tensor]) -> torch.Tensor:
@@ -36,7 +34,7 @@ def gan_loss(preds: Features, target_is_real: bool, use_lsgan: bool = True,
     target = 1.0 if target_is_real else 0.0
     total = 0.0
     for scale in preds:
-        pred = _lift(scale[-1])
+        pred = lift(scale[-1])
         if use_lsgan:
             total = total + _wmean((pred - target) ** 2, sample_weight)
         else:
@@ -58,7 +56,7 @@ def feature_matching_loss(pred_fake: Features, pred_real: Features,
     total = 0.0
     for i in range(num_d):
         for j in range(len(pred_fake[i]) - 1):
-            target = _lift(pred_real[i][j].detach())
+            target = lift(pred_real[i][j].detach())
             total = total + weight * _wmean(
-                torch.abs(_lift(pred_fake[i][j]) - target), sample_weight)
+                torch.abs(lift(pred_fake[i][j]) - target), sample_weight)
     return total

@@ -70,7 +70,8 @@ class BaseOptions:
         p.add_argument("--data_type", default=32, type=int, choices=[8, 16, 32])
         p.add_argument("--verbose", action="store_true", default=False)
         p.add_argument("--fp16", action="store_true", default=False,
-                       help="bf16 compute policy (not ported: raises)")
+                       help="bf16 compute policy: G and D compute in bf16 on "
+                            "float32 parameters")
         p.add_argument("--fused_mdct", type=str, default="auto",
                        choices=["auto", "on", "off"],
                        help="auto/on: the CUDA MDCT kernels on the card; off "
@@ -328,12 +329,9 @@ TRAIN_DEFAULTS = {k: getattr(defaults(), k) for k in (
 def train_options(opt) -> Dict:
     """The train keys of ``opt`` (a dict or a parsed namespace), with
     defaults.  Raises ``NotImplementedError`` for what the port does not
-    train yet: the bf16 policy (``fp16``) and several processes
-    (``multihost``)."""
+    train yet: several processes (``multihost``)."""
     o = as_dict(opt)
     out = {k: o.get(k, v) for k, v in TRAIN_DEFAULTS.items()}
-    if out["fp16"]:
-        raise NotImplementedError("the bf16 policy (fp16) is not ported")
     if o.get("multihost"):
         raise NotImplementedError("--multihost: multi-process training (DDP) is not ported")
     return out

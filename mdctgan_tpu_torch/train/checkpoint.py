@@ -3,8 +3,9 @@
 
 One file ``step_<N>.pt`` per save holds G's and D's parameters and buffers
 (the BatchNorm running statistics), both optimizers' state beside the names
-of the parameters each one trains, the step, the gradients of an update
-still being accumulated, and the cursor ``{epoch, epoch_iter,
+of the parameters each one trains, the step and the step at which G's
+accumulation window began, each net's gradients of an update still being
+accumulated, and the cursor ``{epoch, epoch_iter,
 units_samples}`` (``epoch_iter`` counts samples, as the reference's
 ``iter.txt`` does).  ``epoch_index.json`` maps each epoch-end save to its
 step, so ``--which_epoch N`` finds it.  The JAX package's ``ckpt/`` holds
@@ -61,20 +62,23 @@ def optimizer_names(opt: torch.optim.Optimizer, module: torch.nn.Module) -> List
 
 
 def snapshot(state: GANTrainState, accum_steps: int = 1) -> Dict:
-    """The whole state as host tensors.  The gradients being accumulated
-    are kept only in the middle of an update (``step % accum_steps``)."""
-    out = {"step": int(state.step),
+    """The whole state as host tensors.  A net's gradients being
+    accumulated are kept only in the middle of its update
+    (``GANTrainState.micro_index``; G's window may start elsewhere than
+    D's)."""
+    out = {"step": int(state.step), "g_window_start": int(state.g_window_start),
            "generator": _host_copy(state.generator.state_dict()),
            "discriminator": _host_copy(state.discriminator.state_dict())}
     for key, opt, module in (("g_opt", state.g_opt, state.generator),
                              ("d_opt", state.d_opt, state.discriminator)):
         out[key] = {"names": optimizer_names(opt, module),
                     "state_dict": _host_copy(opt.state_dict())}
-    mid_update = int(state.step) % max(int(accum_steps), 1) != 0
-    for key, module in (("g_acc", state.generator), ("d_acc", state.discriminator)):
+    accum = max(int(accum_steps), 1)
+    for key, net, module in (("g_acc", "G", state.generator),
+                             ("d_acc", "D", state.discriminator)):
         out[key] = ({n: p.grad.detach().to("cpu", copy=True)
                      for n, p in module.named_parameters() if p.grad is not None}
-                    if mid_update else {})
+                    if state.micro_index(net, accum) != 0 else {})
     return out
 
 
@@ -94,7 +98,7 @@ def state_digest(state: Union[GANTrainState, Mapping]) -> Dict[str, str]:
     optimizers' parameter names and the step: two states with equal
     digests are equal bit for bit."""
     snap = state if isinstance(state, Mapping) else snapshot(state)
-    out = {"step": str(snap["step"]),
+    out = {"step": str(snap["step"]), "g_window_start": str(snap.get("g_window_start", 0)),
            "names": hashlib.sha256(json.dumps(
                [snap["g_opt"]["names"], snap["d_opt"]["names"]]).encode()).hexdigest()}
     for key in ("generator", "discriminator", "g_opt", "d_opt", "g_acc", "d_acc"):
@@ -302,6 +306,7 @@ class CheckpointManager:
             for name, p in module.named_parameters():
                 p.grad = saved[key][name].to(p.device) if name in saved[key] else None
         state.step = int(saved["step"])
+        state.g_window_start = int(saved.get("g_window_start", 0))
         cur = payload["cursor"]
         it = int(cur["epoch_iter"])
         if "units_samples" not in cur:

@@ -88,10 +88,16 @@ def make_optimizers(lr: float, beta1: float, niter: int, niter_decay: int,
 def carry_schedule_count(state, g_tx: OptimizerSpec):
     """The ``niter_fix_global`` unfreeze: ``state`` gets a fresh G optimizer
     from ``g_tx`` (new Adam moments and bias correction, like the
-    reference's new Adam) while its schedule goes on from ``state.step``,
-    which no optimizer holds, so the decay keeps counting epochs from the
-    start of training.  Returns ``state``."""
+    reference's new Adam) and, as the JAX package's fresh ``optax.MultiSteps``
+    state, a fresh accumulation window: G's partial gradients are dropped
+    and its window starts at ``state.step``.  Its schedule goes on from the
+    updates G had made (``GANTrainState.update_count``), which no optimizer
+    holds, so the decay keeps counting epochs from the start of training.
+    D's window runs on.  Returns ``state``."""
     state.g_opt = g_tx.init(state.generator.named_parameters())
+    for p in state.generator.parameters():
+        p.grad = None
+    state.g_window_start = state.step
     return state
 
 

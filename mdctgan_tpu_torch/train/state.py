@@ -3,7 +3,10 @@
 Where the JAX state holds parameter trees and optax states, this one holds
 the two modules (whose parameters and BatchNorm buffers are the state),
 their two optimizers and the step count, which is also the position of the
-learning-rate schedule.
+learning-rate schedule.  ``g_window_start`` is the step at which G's
+current accumulation window began: 0, or the ``niter_fix_global`` unfreeze,
+where the JAX package gives G a fresh ``optax.MultiSteps`` state while D's
+runs on.
 """
 
 from __future__ import annotations
@@ -26,9 +29,24 @@ class GANTrainState:
     discriminator: nn.Module
     g_opt: torch.optim.Optimizer
     d_opt: torch.optim.Optimizer
+    g_window_start: int = 0
 
     def params_count(self) -> int:
         return sum(p.numel() for p in self.generator.parameters())
+
+    def micro_index(self, net: str, accum: int) -> int:
+        """How many micro-batches of ``net``'s (``"G"`` or ``"D"``) current
+        update are already accumulated."""
+        start = self.g_window_start if net == "G" else 0
+        return (self.step - start) % accum
+
+    def update_count(self, net: str, accum: int) -> int:
+        """``net``'s completed updates, the position of its schedule: D's
+        is ``step // accum``; G's carries the count it had at the unfreeze
+        and counts on from its own window start."""
+        if net == "D":
+            return self.step // accum
+        return self.g_window_start // accum + (self.step - self.g_window_start) // accum
 
 
 def create_train_state(

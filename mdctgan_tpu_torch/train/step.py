@@ -70,8 +70,11 @@ def build_train_step(
     ``g_tx``/``d_tx`` give the schedules and must be the specs the state's
     optimizers were built from.  With their ``accum_steps`` k > 1 each
     parameter's ``.grad`` keeps the running mean of the micro-batches'
-    gradients (``optax.MultiSteps``' form) and the optimizers step on every
-    k-th call, at update count ``state.step // k``.
+    gradients (``optax.MultiSteps``' form) and each optimizer steps on the
+    k-th call of its window, at its update count (``GANTrainState.
+    update_count``): D's window starts at step 0, G's at
+    ``state.g_window_start``, which the ``niter_fix_global`` unfreeze
+    moves.
 
     With ``use_pool`` the D_fake input is the per-sample mix
     ``m*pool_old + (1-m)*fake`` of ``ImagePool.presample``'s ``(pool_old,
@@ -141,14 +144,15 @@ def build_train_step(
         grads = torch.autograd.grad(loss_g + loss_d, g_params + d_params)
         mark("backward")
 
-        n = state.step % accum  # micro-batches already in this update
-        for p, g in zip(g_params + d_params, grads):
-            p.grad = g if n == 0 or p.grad is None else (g + n * p.grad) / (n + 1)
-        if n == accum - 1:
-            g_tx.set_lr(state.g_opt, state.step // accum)
-            d_tx.set_lr(state.d_opt, state.step // accum)
-            state.g_opt.step()
-            state.d_opt.step()
+        for net, params, net_grads, tx, optimizer in (
+                ("G", g_params, grads[:len(g_params)], g_tx, state.g_opt),
+                ("D", d_params, grads[len(g_params):], d_tx, state.d_opt)):
+            n = state.micro_index(net, accum)  # micro-batches already in this update
+            for p, g in zip(params, net_grads):
+                p.grad = g if n == 0 or p.grad is None else (g + n * p.grad) / (n + 1)
+            if n == accum - 1:
+                tx.set_lr(optimizer, state.update_count(net, accum))
+                optimizer.step()
         state.step += 1
         mark("optimizer")
 

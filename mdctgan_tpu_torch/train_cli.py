@@ -1,7 +1,7 @@
 """The train entry point: the port of ``mdctgan_tpu/train_cli.py``.
 
     python -m mdctgan_tpu_torch.train_cli --dataroot TRAIN.csv \\
-        --evalroot EVAL.csv ...train.sh's flags without --fp16...
+        --evalroot EVAL.csv ...train.sh's flags...
 
 A background input pipeline decodes random crops of a CSV or directory
 corpus (``data/pipeline.py``) and degrades each batch on the card; the
@@ -16,10 +16,12 @@ with ``--tf_log``); full checkpoints (``train/checkpoint.py``) go to
 latest.  SIGINT and SIGTERM finish the step, save, and return.
 
 The model trains on ``cuda:<gpu_ids>`` (default 0; raises without CUDA),
-in float32 with TF32 off for the whole run (``device.float32_policy``);
-``--gpu_ids -1`` asks for the CPU.  Several ids, ``--multihost`` and
-``--fp16`` raise ``NotImplementedError``.  The TPU-form flags of the JAX
-package are parsed and ignored (``options.py``).
+with TF32 off for the whole run (``device.float32_policy``); ``--gpu_ids
+-1`` asks for the CPU.  ``--fp16`` is the JAX package's bf16 policy: G and
+D compute in bf16 on float32 parameters, with no loss scaling, and the
+spectra, the losses and the optimizers stay float32.  Several ids and
+``--multihost`` raise ``NotImplementedError``.  The TPU-form flags of the
+JAX package are parsed and ignored (``options.py``).
 """
 
 from __future__ import annotations
@@ -74,7 +76,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     t_start = time.perf_counter()
     launches_before = dict(mdct_kernels.LAUNCHES)
     opt = TrainOptions().parse(argv)
-    train_options(opt)  # raises for --fp16 and --multihost
+    train_options(opt)  # raises for --multihost
     if len(opt.gpu_ids) > 1:
         raise NotImplementedError(f"--gpu_ids {opt.gpu_ids}: data-parallel training (DDP) "
                                   "is not ported")

@@ -2,8 +2,9 @@
 round trip of the whole train state, ``--which_epoch`` resolution, pruning,
 the fail-fast partial restore, the cursor, asynchronous saves, the
 resume trajectory (k steps, save, restore, N-k steps against N steps, bit
-for bit, with and without the ``niter_fix_global`` unfreeze between), and
-``accum_steps`` against the JAX package's ``optax.MultiSteps``.
+for bit, with and without the ``niter_fix_global`` unfreeze between, and in
+the middle of an update across it), and ``accum_steps`` against the JAX
+package's ``optax.MultiSteps``.
 
 Sizes: the small LocalEnhancer and discriminator of ``test_torch_train.py``
 on a (32, 64) spectrum, batch 4 (2 a micro-batch).
@@ -275,6 +276,48 @@ def test_accumulation_resumes_mid_update_bitwise(env, tmp_path):
     for b in halves[1:]:
         step(fresh, b)
     _assert_states_equal(fresh, whole)
+
+
+def test_accumulation_resumes_mid_update_across_the_unfreeze_bitwise(env, tmp_path):
+    """k = 4, the unfreeze after 6 micro-steps (half way through D's second
+    update): G's window starts afresh there.  A save one micro-step later,
+    in the middle of both nets' updates (G 1 of 4, D 3 of 4), restored into
+    a freshly built state, then 5 more micro-steps: the same state as 12
+    micro-steps without a break, bit for bit, with G's window start and
+    both nets' partial gradients carried by the save."""
+    names = [n for n, _ in LocalEnhancer(**SMALL_LOCAL).named_parameters()]
+    g_tx, d_tx = _adam(accum_steps=4)
+    first_tx = freeze.masked_optimizer(g_tx, freeze.param_labels(names, fix_global=True))
+    halves = [{n: v[2 * i: 2 * i + 2] for n, v in _batch(env).items()} for i in range(2)]
+    batches = [halves[i % 2] for i in range(12)]
+
+    def start():
+        state = _port_state(env, first_tx, d_tx)
+        step = _port_step(env, first_tx, d_tx)
+        for b in batches[:6]:
+            step(state, b)
+        return schedule.carry_schedule_count(state, g_tx)
+
+    whole = start()
+    assert whole.g_window_start == 6 and all(p.grad is None for p in whole.generator.parameters())
+    step = _port_step(env, g_tx, d_tx)
+    for b in batches[6:]:
+        step(whole, b)
+
+    part = start()
+    step(part, batches[6])
+    assert (part.micro_index("G", 4), part.micro_index("D", 4)) == (1, 3)
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    mgr.save(part, epoch=4, epoch_iter=2, accum_steps=4)
+    fresh = _port_state(env, g_tx, d_tx)
+    mgr.restore(fresh)
+    assert fresh.g_window_start == 6 and fresh.step == 7
+    assert all(p.grad is not None for p in [*fresh.generator.parameters(),
+                                            *fresh.discriminator.parameters()])
+    for b in batches[7:]:
+        step(fresh, b)
+    _assert_states_equal(fresh, whole)
+    assert fresh.update_count("G", 4) == 2 and fresh.update_count("D", 4) == 3
 
 
 # --------------------------------------------------------------------------

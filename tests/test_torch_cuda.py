@@ -141,6 +141,32 @@ def test_small_model_serves_through_kernels(cuda):
 
 
 @pytest.mark.cuda
+def test_small_bf16_generator_on_card_against_float64(cuda):
+    """The small generator under ``fp16`` (eval mode) on the card and on the
+    CPU against the float64 generator on the same weights: float32 logits
+    come back, and the card's error is within 2x the CPU's bf16 error, by
+    max and by RMS (the bound of ``chip_smoke.py`` phase 6b)."""
+    rng = np.random.default_rng(3)
+    state = state_dict_from_jax(*random_jax_trees(build_generator(SMALL_OPT), rng))
+    x = torch.from_numpy(rng.standard_normal((2, 2, 128, 64)).astype(np.float32))
+    nets = {}
+    for name, opt in (("card", dict(SMALL_OPT, fp16=True)), ("cpu", dict(SMALL_OPT, fp16=True)),
+                      ("truth", SMALL_OPT)):
+        nets[name] = build_generator(opt)
+        nets[name].load_state_dict(state, strict=True)
+        nets[name].eval()
+    with torch.no_grad():
+        card = nets["card"].to(cuda).logits(x.to(cuda)).cpu()
+        cpu = nets["cpu"].logits(x)
+        truth = nets["truth"].double().logits(x.double())
+    assert card.dtype == cpu.dtype == torch.float32
+    errs = {name: (float((v.double() - truth).abs().max()),
+                   float((v.double() - truth).pow(2).mean().sqrt()))
+            for name, v in (("card", card), ("cpu", cpu))}
+    assert errs["card"][0] <= 2 * errs["cpu"][0] and errs["card"][1] <= 2 * errs["cpu"][1], errs
+
+
+@pytest.mark.cuda
 def test_small_train_step_on_card_matches_cpu(cuda):
     """Three SGD(1) steps of the small G and D on the card and on the CPU
     from the same weights: the first step's losses agree within 1e-3

@@ -2,7 +2,7 @@
 transposed-conv upsample and the ``netG global`` default, the options, file
 I/O, the noise, the metrics, the ``.pth`` importer with its fallback ladder,
 the shared segment loop, and the generate CLI as a whole in single-file and
-batch mode on the same ``.pth`` and WAVs.
+batch mode on the same ``.pth`` and WAVs, in float32 and with ``--fp16``.
 
 Sizes: the geometry of ``tests/test_cli.py``'s generate smoke test (n_fft
 128, 8128-sample segments, ``netG global`` ngf 4 with 2 downsamples, one
@@ -678,7 +678,58 @@ def test_generate_cli_fused_mdct_off_raises(corpus, tmp_path):
 
 def test_generate_cli_refuses_unported_options(corpus, tmp_path):
     base = _cli_args(corpus, tmp_path, "x", corpus["csv"])
-    for extra in (["--fp16"], ["--netG", "local", "--n_blocks_attn_l", "1"],
-                  ["--raw_mdct"]):
+    for extra in (["--netG", "local", "--n_blocks_attn_l", "1"], ["--raw_mdct"]):
         with pytest.raises(NotImplementedError):
             generate_cli.main(base + extra)
+
+
+def test_generate_cli_fp16_matches_jax_bf16(corpus, tmp_path):
+    """``--fp16``, as ``generate_audio.sh`` passes it: the port serves with
+    the bf16 generator (float32 spectra, K1/K2 and denormalization).  One
+    file through each package's ``_process_file`` in bf16: the port's SR is
+    within 2x the JAX bf16 SR's distance from the port's float32 SR, by max
+    and by RMS.  The float32 SR stands for the truth: JAX's float32 SR is
+    under a tenth of that distance from it.  Measured: port max 1.35e-5,
+    RMS 9.0e-7; JAX max 1.61e-5, RMS 9.7e-7 (the damped head keeps the SR
+    band, and so its bf16 rounding, small).  Then the two
+    CLIs as a whole, with their metrics within 1e-2 relative (LSD) and
+    0.1 dB (SNR) of each other."""
+    path = str(corpus["wavs"] / "s1.wav")
+    ref = {}
+    for fp16 in (False, True):
+        jopt = _jax_opt(tmp_path, ["--fp16"] if fp16 else [])
+        cfg = j_spectral_config_from_opt(jopt)
+        jt = JSpectralTransform(cfg, use_fused=False)
+        ref[fp16] = np.asarray(jcli._process_file(
+            path, jopt, cfg, jt,
+            j_build_inference_fn(j_build_generator(jopt), jt, out_length=8128),
+            {"params": corpus["params"], "batch_stats": corpus["stats"]})[0])
+    sr = {}
+    for fp16 in (False, True):
+        opt = options.TrainOptions().parse(
+            FLAGS + ["--checkpoints_dir", str(tmp_path)] + (["--fp16"] if fp16 else []),
+            save=False)
+        model = api.create_model(opt, "cpu", state_dict=state_dict_from_jax(corpus["params"],
+                                                                             corpus["stats"]))
+        assert model.generator.compute_dtype is (torch.bfloat16 if fp16 else None)
+        sr[fp16] = generate_cli._process_file(path, opt, options.spectral_config_from_opt(opt),
+                                              model)[0]
+    errs = {}
+    for name, x in (("port", sr[True]), ("jax", ref[True]), ("f32", ref[False])):
+        d = (x - sr[False]).astype(np.float64)
+        errs[name] = (float(np.abs(d).max()), float(np.sqrt(np.mean(d ** 2))))
+    assert errs["f32"][0] <= 0.1 * errs["jax"][0], errs
+    assert errs["port"][0] <= 2 * errs["jax"][0] and errs["port"][1] <= 2 * errs["jax"][1], errs
+
+    wav = corpus["wavs"] / "s1.wav"
+    with mock.patch.object(sys, "argv", ["generate_audio.py"]
+                           + _cli_args(corpus, tmp_path / "jax", "fp16", wav) + ["--fp16"]):
+        jcli.main()
+    r = generate_cli.main(_cli_args(corpus, tmp_path / "port", "fp16", wav) + ["--fp16"])
+    assert r["rungs"] == [] and (tmp_path / "port" / "fp16" / "sr_audio.wav").exists()
+    metrics = {}
+    for name in ("port", "jax"):
+        line = (tmp_path / name / "fp16" / "metric.txt").read_text().splitlines()[1]
+        metrics[name] = dict(zip(("mse", "snr_sr", "lsd"), map(float, line.split(","))))
+    assert abs(metrics["port"]["lsd"] - metrics["jax"]["lsd"]) <= 1e-2 * metrics["jax"]["lsd"]
+    assert abs(metrics["port"]["snr_sr"] - metrics["jax"]["snr_sr"]) <= 0.1, metrics

@@ -148,7 +148,7 @@ def test_port_imports_no_jax():
              + sorted((ROOT / "probes").glob("*.py")))
     assert len(files) > 10
     # the train entry point and every module it added
-    for name in ("train_cli.py", "data/pipeline.py", "train/checkpoint.py",
+    for name in ("train_cli.py", "export_torch_cli.py", "data/pipeline.py", "train/checkpoint.py",
                  "utils/visualizer.py", "utils/html.py", "utils/spectro_img.py",
                  "utils/profiling.py"):
         assert ROOT / "mdctgan_tpu_torch" / name in files, name

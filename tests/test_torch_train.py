@@ -588,11 +588,11 @@ def test_create_train_state_without_cuda_raises(monkeypatch):
 
 
 def test_unported_train_options_raise():
+    """Only ``multihost`` is refused now: ``accum_steps`` came with the
+    train CLI and ``fp16`` (a bf16 discriminator) with the bf16 policy."""
     assert train_options({})["num_D"] == 2
-    assert train_options({"accum_steps": 2})["accum_steps"] == 2  # ported with the train CLI
-    with pytest.raises(NotImplementedError):
-        train_options({"fp16": True})
+    assert train_options({"accum_steps": 2})["accum_steps"] == 2
+    assert train_options({"fp16": True})["fp16"] is True
+    assert build_discriminator({"fp16": True}).scale0.layer0.compute_dtype is torch.bfloat16
     with pytest.raises(NotImplementedError):
         train_options({"multihost": True})
-    with pytest.raises(NotImplementedError):
-        build_discriminator({"fp16": True})

@@ -7,10 +7,12 @@ eval crop, no noise, 2 epochs of 2 Adam steps, and an eval of 3 files in
 batches of 2 (a padded remainder batch).  Held against each other: the
 loss lines, ``eval.csv``, the final generator read back from each one's
 checkpoint, the cursor and epoch index, and the rotation of a stale
-``eval.csv``.  Then the port alone: a resume that restores the first run's
-state bit for bit, a SIGTERM, the refusals, ``generate_cli`` from the
-port's checkpoint, the visualizer, the display spectra, the HTML page and
-the profile reader.
+``eval.csv``.  Both CLIs again with ``--accum_steps 4`` across the
+``niter_fix_global`` unfreeze, from a local generator, held update by
+update.  Then the port alone: a resume that restores the first run's
+state bit for bit, a SIGTERM, a ``--fp16`` run and its resume, the
+refusals, ``generate_cli`` from the port's checkpoint, the visualizer, the
+display spectra, the HTML page and the profile reader.
 
 Sizes: the geometry of ``tests/test_cli.py``'s train smoke test (n_fft
 128, 8128-sample segments, ``netG global`` ngf 4, one resblock and one
@@ -29,7 +31,9 @@ import types
 from pathlib import Path
 from unittest import mock
 
+import jax
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -38,6 +42,7 @@ from mdctgan_tpu.models.discriminator import MultiscaleDiscriminator as JMultisc
 from mdctgan_tpu.models.generator import build_generator as j_build_generator
 from mdctgan_tpu.options import TrainOptions as JTrainOptions
 from mdctgan_tpu.train import import_torch as jimp
+from mdctgan_tpu.train import schedule as jschedule
 from mdctgan_tpu.train.checkpoint import CheckpointManager as JCheckpointManager
 from mdctgan_tpu.utils import html as jhtml
 from mdctgan_tpu.utils.spectro_img import display_spectra as j_display_spectra
@@ -350,18 +355,196 @@ def test_train_cli_sigterm_saves_and_exits(corpus, tmp_path):
     ([], RuntimeError, "CUDA"),
     (["--gpu_ids", "0,1"], NotImplementedError, "DDP"),
     (["--gpu_ids", "-1", "--multihost"], NotImplementedError, "multihost"),
-    (["--gpu_ids", "-1", "--fp16"], NotImplementedError, "fp16"),
 ])
 def test_train_cli_refuses_what_is_not_ported(corpus, tmp_path, monkeypatch, extra, error,
                                               match):
     """The default ``--gpu_ids 0`` without CUDA raises (never a silent
-    CPU), and so do several ids, ``--multihost`` and ``--fp16``."""
+    CPU), and so do several ids and ``--multihost``."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = _args(corpus, tmp_path, "x")
     i = args.index("--gpu_ids")
     del args[i: i + 2]
     with pytest.raises(error, match=match):
         train_cli.main(args + extra)
+
+
+def test_train_cli_fp16_trains_and_resumes(corpus, tmp_path, capsys):
+    """``--fp16``, as ``train.sh`` passes it: G and D compute in bf16 on
+    float32 parameters, the losses are float32 and finite, and
+    ``--continue_train`` restores the run's state bit for bit and trains on
+    in bf16."""
+    r = train_cli.main(_args(corpus, tmp_path, "fp16") + ["--fp16"])
+    state = r["state"]
+    assert state.generator.compute_dtype is torch.bfloat16
+    assert state.discriminator.scale0.layer0.compute_dtype is torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in state.generator.parameters())
+    assert len(r["losses"]) == STEPS and all(np.isfinite(v) for row in r["losses"]
+                                             for k, v in row.items() if k not in ("step", "epoch"))
+    assert (tmp_path / "fp16" / "eval.csv").exists()
+    again = train_cli.main(_args(corpus, tmp_path, "fp16") + ["--fp16", "--continue_train",
+                                                              "--niter_decay", "2"])
+    assert "Resuming from epoch 2 at iteration 4" in capsys.readouterr().out
+    assert again["restored_digest"] == state_digest(state)
+    assert again["state"].step == STEPS + 2
+    assert again["state"].generator.compute_dtype is torch.bfloat16
+
+
+# --------------------------------------------------------------------------
+# gradient accumulation across the niter_fix_global unfreeze, both CLIs
+# --------------------------------------------------------------------------
+
+LOCAL = ["--netG", "local", "--n_blocks_local", "1"]
+# 2 steps an epoch, 4 micro-batches an update, the unfreeze after epoch 3
+# (step 6, half way through D's second update), 6 epochs decaying from the
+# first: D updates at steps 4, 8, 12 (counts 0, 1, 2); G at step 4 (count 0)
+# and, in a fresh window from step 6, at step 10 (count 1)
+ACCUM = ["--accum_steps", "4", "--niter_fix_global", "3", "--niter", "0", "--niter_decay", "6",
+         "--eval_freq", "1000000", "--save_latest_freq", "1000000", "--save_epoch_freq", "100"]
+
+
+@pytest.fixture(scope="module")
+def accum_runs(corpus):
+    """The JAX and the port's train CLI with ``ACCUM`` from the same local
+    generator and discriminator: per step, whether each net moved, its
+    learning rate at that update, and its parameters."""
+    root = corpus["root"] / "accum"
+    opt = JTrainOptions().parse(GEOMETRY + LOCAL + ["--checkpoints_dir", str(root / "unused")],
+                                save=False)
+    flax_g = j_build_generator(opt)
+    rng = np.random.default_rng(21)
+    g_params, g_stats = _flax_vars(flax_g, np.zeros((1, 2, 128, 64), np.float32), rng,
+                                   train=False)
+    g_params["local_head"]["conv"] = {k: v * 0.01
+                                      for k, v in g_params["local_head"]["conv"].items()}
+    pretrain = root / "pretrained"
+    pretrain.mkdir(parents=True)
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)) for k, v in
+          jimp.export_to_torch_keys(g_params, g_stats, jimp.generator_entries_for(flax_g)).items()}
+    torch.save(sd, pretrain / "latest_net_G.pth")
+    shutil.copy(corpus["pretrain"] / "latest_net_D.pth", pretrain / "latest_net_D.pth")
+
+    def args(out):
+        return _args(dict(corpus, pretrain=pretrain), root / out, "run") + LOCAL + ACCUM
+
+    sched = jschedule.pix2pixhd_lr_schedule(LR, 0, 6, 1)
+
+    def counts(opt_state):
+        return [int(c.count) for c in jax.tree.leaves(
+            opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByScheduleState))
+            if isinstance(c, optax.ScaleByScheduleState)][0]
+
+    jax_steps, real_jbuild = [], jcli.build_train_step
+
+    def j_build(*a, **k):
+        inner = real_jbuild(*a, **k)
+
+        def step(state, *args, **kw):
+            before = (counts(state.g_opt_state), counts(state.d_opt_state))
+            new, metrics = inner(state, *args, **kw)
+            after = (counts(new.g_opt_state), counts(new.d_opt_state))
+            g, d = jax.device_get((new.g_params, new.d_params))
+            jax_steps.append({
+                "moved": {"G": after[0] > before[0], "D": after[1] > before[1]},
+                "lr": {"G": float(sched(before[0])), "D": float(sched(before[1]))},
+                "params": {"G": {k: v.numpy() for k, v in state_dict_from_jax(g, {}).items()},
+                           "D": {k: v.numpy() for k, v in state_dict_from_jax(d, {}).items()}}})
+            return new, metrics
+        return step
+
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGINT, signal.SIGTERM)}
+    try:
+        with mock.patch.object(jcli, "build_train_step", j_build), \
+                mock.patch.object(sys, "argv", ["train.py"] + args("jax")):
+            jcli.main()
+    finally:
+        for s, h in handlers.items():
+            signal.signal(s, h)
+
+    port_steps, real_build = [], train_cli.build_train_step
+
+    def build(*a, **k):
+        inner = real_build(*a, **k)
+
+        def step(state, *args, **kw):
+            before = {n: [p.detach().clone() for p in m.parameters()]
+                      for n, m in (("G", state.generator), ("D", state.discriminator))}
+            state, metrics = inner(state, *args, **kw)
+            nets = {"G": (state.generator, state.g_opt), "D": (state.discriminator, state.d_opt)}
+            port_steps.append({
+                "moved": {n: any(not torch.equal(b, p) for b, p in zip(before[n], m.parameters()))
+                          for n, (m, _) in nets.items()},
+                "lr": {n: o.param_groups[0]["lr"] for n, (_, o) in nets.items()},
+                "params": {n: {k: v.detach().clone().numpy() for k, v in m.named_parameters()}
+                           for n, (m, _) in nets.items()}})
+            return state, metrics
+        return step
+
+    with mock.patch.object(train_cli, "build_train_step", build):
+        train_cli.main(args("port"))
+    return jax_steps, port_steps, opt
+
+
+def test_accumulation_across_the_unfreeze_matches_jax(accum_runs):
+    """``--accum_steps 4 --niter_fix_global 3`` with 2 steps an epoch, so
+    the unfreeze falls half way through an update.  As JAX's fresh
+    ``optax.MultiSteps``: G's partial gradients are dropped at the
+    unfreeze, G steps on the 4th call after it while D's window runs on,
+    and G's learning rate is read at its own update count, carried across.
+    The same nets move at the same steps with the same learning rates, the
+    global branch only after the unfreeze, and after the net's n-th update
+    its parameters are within the bounds of
+    ``test_gradient_accumulation_matches_jax_multisteps`` with a wider RMS:
+    2.5 lr (n + 1) at the largest, and RMS 0.15 lr n for every tensor whose
+    gradient is not f32 dust.  Adam's first steps move each element by ~lr
+    times the sign of its gradient, and at this geometry more elements
+    than at that test's change sign between two f32 runs: the worst RMS
+    reads 0.083 lr at G's first update and 0.108 lr at its second (the
+    largest differences 1.99 lr).  A G that kept D's window would step at
+    steps 4, 8 and 12."""
+    jax_steps, port_steps, opt = accum_runs
+    assert len(jax_steps) == len(port_steps) == 12
+    moved = {net: [i + 1 for i, s in enumerate(port_steps) if s["moved"][net]]
+             for net in ("G", "D")}
+    assert moved == {net: [i + 1 for i, s in enumerate(jax_steps) if s["moved"][net]]
+                     for net in ("G", "D")} == {"G": [4, 10], "D": [4, 8, 12]}
+    sched = pix2pixhd_lr_schedule(LR, 0, 6, 1)
+    want_lr = {"G": {4: sched(0), 10: sched(1)}, "D": {4: sched(0), 8: sched(1), 12: sched(2)}}
+
+    # which tensors hold f32 dust: those one SGD(1) step does not move
+    gen, disc = build_generator(opt), build_discriminator(opt)
+    gen.load_state_dict({k: torch.from_numpy(v) for k, v in port_steps[0]["params"]["G"].items()},
+                        strict=False)
+    sgd = OptimizerSpec(lambda p: torch.optim.SGD(p, lr=1.0))
+    state = create_train_state(gen, disc, sgd, sgd, device="cpu",
+                               rng=torch.Generator().manual_seed(0))
+    before = {n: p.detach().clone() for n, p in [*gen.named_parameters(),
+                                                 *disc.named_parameters()]}
+    x = torch.from_numpy((0.1 * np.random.default_rng(3).standard_normal((2, 8128)))
+                         .astype(np.float32))
+    build_train_step(SpectralTransform(spectral_config_from_opt(opt), "cpu"), sgd, sgd,
+                     n_layers_d=2, num_d=2)(state, {"lr_audio": x, "hr_audio": x})
+    params = dict([*gen.named_parameters(), *disc.named_parameters()])
+    dust = {n: float((params[n].detach() - before[n]).pow(2).mean().sqrt()) < 1e-5
+            for n in before}
+
+    first = {net: port_steps[0]["params"][net] for net in ("G", "D")}
+    for net in ("G", "D"):
+        for n, step in enumerate(moved[net], start=1):
+            got, ref = port_steps[step - 1], jax_steps[step - 1]
+            assert got["lr"][net] == pytest.approx(want_lr[net][step], rel=1e-6)
+            assert ref["lr"][net] == pytest.approx(want_lr[net][step], rel=1e-6)
+            for name, value in got["params"][net].items():
+                diff = value.astype(np.float64) - ref["params"][net][name]
+                if not dust[name]:
+                    rms = float(np.sqrt(np.mean(diff ** 2)))
+                    assert rms <= 0.15 * LR * n, f"{net} update {n} {name}: RMS {rms:.3e}"
+                assert float(np.abs(diff).max()) <= 2.5 * LR * (n + 1), (net, n, name)
+    for i in range(5):  # the global branch is frozen until the unfreeze
+        for s in (port_steps[i], jax_steps[i]):
+            for name, value in s["params"]["G"].items():
+                if name.startswith("global."):
+                    assert np.array_equal(value, jax_steps[0]["params"]["G"][name]) or \
+                        np.array_equal(value, first["G"][name]), (i, name)
 
 
 def test_generate_cli_reads_a_port_checkpoint(corpus, jax_run, port_run, tmp_path):
