@@ -95,14 +95,38 @@ Phases (none catches an exception; any failure exits non-zero):
      spread read); and the run's own split: set-up, each step's wall and
      ``next(pipeline)`` ms, the profiled step's device idle share, eval,
      checkpoint bytes, save ms blocking and in the background, peak
-     memory, beside phase 8's bf16 step.
+     memory, beside phase 8's bf16 step;
+ 11. the spectral modes and generator layouts beside the flagship's, each
+     path driven with the kernels' and the matmul form's counts set to 0
+     just before it: (a) ``train.sh``'s flags with ``--mask
+     --n_blocks_attn_l 1``: a 3.7 s request through ``api.upsample`` in
+     float32 and bf16 (K1 and K2 launch, the matmul form does not), card
+     against CPU on the waveform (2e-3 of its largest value) and the
+     logits (5e-4), one float32 SGD(1) step at batch 2 (losses 1e-3
+     relative, the CPU fed the card's spectra), 10 bf16 steps at batch 20
+     timed beside phase 8's flagship step; (b) ``generate_audio.sh``'s
+     flags with ``--n_local_enhancers 2`` in float32, the same request
+     and bounds, card against CPU on its first second; (c) ``generate_audio.sh``'s flags without
+     ``--arcsinh_transform --abs_spectro --abs_norm --center`` (dB,
+     per-sample min/max, no centring; ``--input_nc 1 --segment_length
+     33024``): ``generate_cli.main`` on a 1.0 s file (the matmul form
+     counted, K1/K2 never), card against CPU at one batch size so that
+     both draw the same pseudo-phase signs, the request timed, and the
+     matmul form's spectrum against float64 within 1e-5 (relative) under
+     the policy, which TF32 must fail; (d) the explicit and raw modes at a
+     small depth, one batch each, card against CPU stage by stage, each
+     card stage fed the CPU's input (the spectrum, its normalization and
+     the denormalization 1e-5 relative, the logits 5e-4, the IMDCT 1e-4
+     relative; the end-to-end SR read).
 Every result is one JSON line; a ``kernels`` line sums the kernels up
 (``launches`` on the serving path, ``<path>_launches`` on each other path:
 ``serving_fp16``, ``train`` (float32), ``train_fp16``, ``generate`` and
-``train_cli`` (both ``--fp16``), and under ``paths`` each path's batch,
-launches and the kernel's numbers at that batch) and the last line is ``{"ok": true,
-"device": {...}}``.  Without CUDA, or run outside a checkout of the
-repository, it prints no result and exits 2.
+``train_cli`` (both ``--fp16``), phase 11's ``local_attn_serving``,
+``local_attn_train_fp16`` and ``two_enhancers_serving``, and under
+``paths`` each path's batch, launches and the kernel's numbers at that
+batch) and the last line is ``{"ok": true, "device": {...}}``.  Without
+CUDA, or run outside a checkout of the repository, it prints no result and
+exits 2.
 """
 
 from __future__ import annotations
@@ -166,10 +190,19 @@ TRAIN_CLI_FLAGS = [
 CORPUS = ["--style", "speech", "--n_files", "40", "--seconds", "2.0", "--seed", "7"]
 GENERATE_SECONDS = (1.0, 2.2, 3.7)
 LONG_SECONDS = 60.0  # the in-flight reading's file: 6 batches of 16
+# Phase 11: the local-attention flags it adds to train.sh's (the heads,
+# dim_head and proj_factor of the local stack are the flags' defaults), its
+# request, its bf16 steps, and the segment at which the CLI's default
+# (uncentred) framing gives the generator's 128 frames
+LOCAL_ATTN = dict(mask=True, n_blocks_attn_l=1, heads_l=4, dim_head_l=128, proj_factor_l=4)
+MODES_REQUEST_S = 3.7
+MODES_STEPS = 10
+DB_SEGMENT = 33024
 # Each main path's batch: phases 3, 4 and 7 check and time every kernel at each.
 PATH_BATCHES = {"serving": MAIN_BATCH, "serving_fp16": MAIN_BATCH, "train": TRAIN_BATCH,
                 "train_fp16": TRAIN_BATCH, "generate": GENERATE_BATCH,
-                "train_cli": TRAIN_BATCH}
+                "train_cli": TRAIN_BATCH, "local_attn_serving": MAIN_BATCH,
+                "local_attn_train_fp16": TRAIN_BATCH, "two_enhancers_serving": MAIN_BATCH}
 BATCHES = tuple(sorted({1, *PATH_BATCHES.values()}))
 TIMED_BATCHES = tuple(sorted(set(PATH_BATCHES.values())))
 # Published peaks: float32 FMA rate outside the tensor cores, memory rate.
@@ -1023,6 +1056,292 @@ def train_cli_phase(smi: str, dev: torch.device, bare_step: dict,
     return launches
 
 
+def modes_phase(rng, smi: str, dev: torch.device, bf16_step: dict) -> dict:
+    """Phase 11; returns each kernel's launches on the paths that run K1/K2
+    (11a serving and its bf16 step, 11b serving)."""
+    from mdctgan_tpu_torch import api, generate_cli
+    from mdctgan_tpu_torch.configs import flagship_opt
+    from mdctgan_tpu_torch.data import native
+    from mdctgan_tpu_torch.data.synthetic import speech_like
+    from mdctgan_tpu_torch.device import float32_policy
+    from mdctgan_tpu_torch.models.discriminator import build_discriminator
+    from mdctgan_tpu_torch.models.generator import build_generator
+    from mdctgan_tpu_torch.ops import mdct as M
+    from mdctgan_tpu_torch.ops import mdct_kernels as K
+    from mdctgan_tpu_torch.ops.features import SpectralTransform
+    from mdctgan_tpu_torch.options import TrainOptions, spectral_config_from_opt, train_options
+    from mdctgan_tpu_torch.train import grad_truth as GT
+    from mdctgan_tpu_torch.train.import_torch import export_to_torch_keys, generator_entries_for
+    from mdctgan_tpu_torch.train.schedule import make_optimizers
+    from mdctgan_tpu_torch.train.state import create_train_state
+    from mdctgan_tpu_torch.train.step import build_inference_fn, build_train_step
+    from mdctgan_tpu_torch.weights import random_jax_trees, state_dict_from_jax
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    request = speech_like(rng, MODES_REQUEST_S)  # at 16 kHz, the LR input
+    audio_s = MODES_REQUEST_S
+    paths = {}
+
+    def counted(fn):
+        """``fn()`` with both counters set to 0 just before it; (its result,
+        the kernels' launches, the matmul form's calls)."""
+        K.reset_launch_counts()
+        M.reset_matmul_counts()
+        result = fn()
+        return result, dict(K.LAUNCHES), dict(M.MATMULS)
+
+    def serve(label: str, opt: dict, state: dict, fused: bool, precisions=("f32",),
+              compare_s: float = MODES_REQUEST_S) -> dict:
+        """``api.upsample`` of the request on the card in each precision
+        (counted, timed), card against CPU in float32 on the waveform of
+        its first ``compare_s`` seconds and on the logits of 2 segments;
+        returns the launches summed over the precisions."""
+        total = {name: 0 for name in K.LAUNCHES}
+        for precision in precisions:
+            o = dict(opt, fp16=precision == "bf16")
+            model = api.create_model(o, "cuda", state_dict=state)
+            if model.transform.fused != fused:
+                raise AssertionError(f"{label}: fused {model.transform.fused}, expected {fused}")
+            out, launches, matmuls = counted(lambda: api.upsample(
+                request, 16000, model, is_lr_input=True, gen_overlap=512,
+                batch_size=MAIN_BATCH))
+            for k, v in launches.items():
+                total[k] += v
+            if out.shape != (round(len(request) * 3),) or not np.isfinite(out).all():
+                raise AssertionError(f"{label} {precision}: bad output {out.shape}")
+            kernels_ran = all(launches[k] > 0 for k in ("mdct_spectro", "imdct_audio"))
+            dense = launches["mdct_spectro_dense"] + launches["imdct_audio_dense"]
+            if fused != kernels_ran or dense or (fused == (matmuls["mdct_matmul"] > 0)):
+                raise AssertionError(f"{label} {precision}: launches {launches}, matmul form "
+                                     f"{matmuls}, fused {fused}")
+            walls = []  # as phase 7 times the flagship: a warm-up, then 20
+            for _ in range(21):
+                t0 = time.perf_counter()
+                api.upsample(request, 16000, model, is_lr_input=True, gen_overlap=512,
+                             batch_size=MAIN_BATCH)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            seg = model.transform.cfg.segment_length
+            x = torch.from_numpy(speech_like(rng, MAIN_BATCH * seg / 16000)[
+                : MAIN_BATCH * seg].reshape(MAIN_BATCH, seg)).to(dev)
+            with torch.inference_mode():
+                g_in = model.transform.g_input(model.transform.lr_forward(x)[0])
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                gen_ms = time_ms(lambda: model.generator(g_in), runs=20, inner=1)
+            wall = statistics.median(walls[1:])
+            emit({"timing": {"name": f"{label}_serving", "precision": precision, "card": smi,
+                             "request_s": audio_s, "ms": wall,
+                             "ms_per_audio_s": wall / audio_s, "launches": launches,
+                             "matmul_form_calls": matmuls,
+                             "generator_forward_ms": gen_ms, "batch": MAIN_BATCH,
+                             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}})
+            if precision != "f32":
+                continue
+            cpu_model = api.create_model(o, "cpu", state_dict=state)
+            part = request[: round(compare_s * 16000)]
+            if len(part) < len(request):
+                out = api.upsample(part, 16000, model, is_lr_input=True, gen_overlap=512,
+                                   batch_size=MAIN_BATCH)
+            ref = api.upsample(part, 16000, cpu_model, is_lr_input=True, gen_overlap=512,
+                               batch_size=2)
+            scale = float(np.abs(ref).max())
+            check(f"{label} upsample card vs CPU", float(np.abs(out - ref).max()),
+                  2e-3 * scale, request_s=compare_s, max_abs_ref=scale)
+            with torch.inference_mode():
+                card_logits = model.generator.logits(g_in[:2]).cpu()
+                cpu_logits = cpu_model.generator.logits(g_in[:2].cpu())
+            ref_scale = float(cpu_logits.abs().max())
+            check(f"{label} logits card vs CPU", max_err(card_logits, cpu_logits),
+                  5e-4 * max(1.0, ref_scale), batch=2, max_abs_ref=ref_scale)
+            del cpu_model
+        return total
+
+    def mark(part: str) -> None:
+        emit({"phase": 11, "part": part, "t_s": time.perf_counter() - t_phase})
+
+    # 11a. train.sh's flags + --mask --n_blocks_attn_l 1 ----------------------
+    opt_a = dict(flagship_opt(), **LOCAL_ATTN)
+    state_a = state_dict_from_jax(*random_jax_trees(build_generator(opt_a), rng))
+    d_state_a = state_dict_from_jax(*random_jax_trees(build_discriminator(opt_a), rng))
+    paths["local_attn_serving"] = serve("11a local attention + mask", opt_a, state_a, True,
+                                        ("f32", "bf16"))
+    mark("11a serving")
+    cfg_a = spectral_config_from_opt(opt_a)
+    seg = cfg_a.segment_length
+    # one float32 SGD(1) step at batch 2, the CPU fed the card's spectra
+    batch2 = GT.inputs("noise", rng, 2, seg)
+    card_t, cpu_t = SpectralTransform(cfg_a, dev), SpectralTransform(cfg_a, cpu)
+    card_losses, _ = GT.sgd_step(opt_a, GT.load_nets(opt_a, state_a, d_state_a), card_t,
+                                 batch2, dev)
+    cpu_losses, _ = GT.sgd_step(opt_a, GT.load_nets(opt_a, state_a, d_state_a),
+                                GT.SharedSpectra(cpu_t, card_t), batch2, cpu)
+    check("11a SGD step losses card vs CPU (max rel)",
+          max(abs(card_losses[k] - v) / abs(v) for k, v in cpu_losses.items()), 1e-3,
+          batch=2, card=card_losses, cpu=cpu_losses)
+    mark("11a SGD step")
+    # the bf16 step at batch 20: median of 10 after 3 warm-ups, by CUDA events
+    opt_a16 = dict(opt_a, fp16=True)
+    tro = train_options(opt_a16)
+    g_tx, d_tx = make_optimizers(tro["lr"], tro["beta1"], tro["niter"], tro["niter_decay"], 1000)
+    state = create_train_state(build_generator(opt_a16), build_discriminator(opt_a16), g_tx,
+                               d_tx, device=dev, rng=torch.Generator().manual_seed(SEED))
+    step = build_train_step(card_t, g_tx, d_tx, use_lsgan=not tro["no_lsgan"],
+                            lambda_feat=tro["lambda_feat"], n_layers_d=tro["n_layers_D"],
+                            num_d=tro["num_D"], use_ganfeat=not tro["no_ganFeat_loss"],
+                            noise=torch.Generator().manual_seed(SEED))
+    data = GT.inputs("speech", rng, TRAIN_BATCH, seg)
+    batch20 = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+
+    def steps():
+        times, history = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(3 + MODES_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, metrics = step(state, batch20)
+            end.record()
+            end.synchronize()
+            history.append({k: float(v) for k, v in metrics.items()})
+            if i >= 3:
+                times.append(start.elapsed_time(end))
+        return times, history
+
+    (times, history), launches, matmuls = counted(steps)
+    if not all(math.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError("11a: a bf16 train loss is not finite")
+    expected = {name: 0 for name in K.LAUNCHES}
+    expected["mdct_spectro"] = 2 * (3 + MODES_STEPS)
+    if launches != expected or any(matmuls.values()):
+        raise AssertionError(f"11a step launches {launches}, matmul form {matmuls}")
+    paths["local_attn_train_fp16"] = launches
+    step_ms = statistics.median(times)
+    emit({"timing": {"name": "11a_train_step", "precision": "bf16", "card": smi,
+                     "batch": TRAIN_BATCH, "ms": step_ms, "ms_min": min(times),
+                     "ms_max": max(times), "samples_per_s": TRAIN_BATCH / step_ms * 1e3,
+                     "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                     "phase8_flagship_bf16_ms": bf16_step["ms"],
+                     "over_flagship": step_ms / bf16_step["ms"] - 1.0,
+                     "losses_last": history[-1]}})
+    del state, step, batch20
+    mark("11a bf16 steps")
+
+    # 11b. generate_audio.sh's flags + --n_local_enhancers 2, float32 ----------
+    f32_flags = [a for a in GENERATE_FLAGS if a != "--fp16"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="modes_", dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        ckpt = ["--checkpoints_dir", str(tmp / "out")]
+        opt_b = vars(TrainOptions().parse(f32_flags + ["--n_local_enhancers", "2"] + ckpt,
+                                          save=False))
+        state_b = state_dict_from_jax(*random_jax_trees(build_generator(opt_b), rng))
+        paths["two_enhancers_serving"] = serve("11b two enhancers", opt_b, state_b, True,
+                                               compare_s=1.0)
+        mark("11b serving")
+
+        # 11c. the CLI's default spectral flags: dB, per-sample, no centring --
+        bare = {"--arcsinh_transform", "--abs_spectro", "--abs_norm", "--center"}
+        flags_c = [a for a in f32_flags if a not in bare] + [
+            "--input_nc", "1", "--segment_length", str(DB_SEGMENT)]
+        opt_c = TrainOptions().parse(flags_c + ckpt, save=False)
+        cfg_c = spectral_config_from_opt(opt_c)
+        if cfg_c.n_bins != opt_c.bins:
+            raise AssertionError(f"11c: {cfg_c.n_bins} frames, the generator takes {opt_c.bins}")
+        gen_c = build_generator(opt_c)
+        state_c = state_dict_from_jax(*random_jax_trees(gen_c, rng))
+        state_c["local_head.conv.weight"] *= 0.01
+        (tmp / "pretrained").mkdir()
+        torch.save(export_to_torch_keys(state_c, generator_entries_for(gen_c)),
+                   tmp / "pretrained" / "latest_net_G.pth")
+        wav = tmp / "speech_1000ms.wav"
+        native.write_wav16(str(wav), speech_like(rng, 1.0, 48000), 48000)
+
+        def run(name, *extra):
+            return generate_cli.main(flags_c + ckpt + [
+                "--name", name, "--dataroot", str(wav), "--load_pretrain",
+                str(tmp / "pretrained"), *extra])
+
+        cuda_id = ["--gpu_ids", str(dev.index or 0)]
+        card_c, launches, matmuls = counted(lambda: run("c_card", *cuda_id))
+        emit({"generate_run": {"phase": "11c", "launches": launches, "matmul_form": matmuls,
+                               "setup_ms": card_c["setup_ms"], "file_ms": card_c["file_ms"]}})
+        if any(launches.values()) or not (matmuls["mdct_matmul"] > 0
+                                          and matmuls["imdct_matmul"] > 0):
+            raise AssertionError(f"11c launches {launches}, matmul form {matmuls}")
+        # card against CPU at the same batch, so that each batch draws the
+        # same pseudo-phase signs (one generator per batch, drawn on the CPU)
+        pair = {}
+        for name, ids in (("c_card2", cuda_id), ("c_cpu2", ["--gpu_ids", "-1"])):
+            run(name, *ids, "--batchSize", "2")
+            pair[name] = native.read(str(tmp / "out" / name / "sr_audio.wav"))[0]
+        scale = float(np.abs(pair["c_cpu2"]).max())
+        check("11c generate SR WAV card vs CPU (dB, float32)",
+              float(np.abs(pair["c_card2"] - pair["c_cpu2"]).max()), 2e-3 * scale,
+              max_abs_ref=scale, samples=len(pair["c_cpu2"]))
+        mark("11c generate CLI")
+        serve_c = serve("11c dB per-sample uncentred", vars(opt_c), state_c, False,
+                        compare_s=1.0)
+        if any(serve_c.values()):
+            raise AssertionError(f"11c serving launched {serve_c}")
+        # TF32 control: the matmul form's spectrum against float64
+        x = torch.from_numpy(GT.inputs("speech", rng, GENERATE_BATCH, DB_SEGMENT)["lr_audio"])
+        truth = SpectralTransform(cfg_c, cpu, torch.float64).mdct(x.double())
+        card_c_t = SpectralTransform(cfg_c, dev)
+        rel = {}
+        for tf32 in (False, True):
+            with torch.inference_mode(), float32_policy(allow_tf32=tf32):
+                got = card_c_t.mdct(x.to(dev))
+            rel[tf32] = max_err(got, truth.to(dev)) / float(truth.abs().max())
+        # 1e-5: the policy read 1.22e-6 and TF32 7.55e-5 on this input
+        # (NVIDIA H100 80GB HBM3, 700 W), so each side has a margin of ~8x
+        check("11c matmul form vs float64 (max rel), TF32 off", rel[False], 1e-5,
+              batch=GENERATE_BATCH, tf32_allowed=rel[True])
+        if not rel[True] > 1e-5:
+            raise AssertionError(f"TF32 passes the matmul form's bound: {rel[True]}")
+
+    mark("11c serving and TF32 control")
+    # 11d. explicit and raw at a small depth, one batch each ------------------
+    # The card's run is held end to end against the CPU's run fed the card's
+    # LR spectrum, and the MDCT on its own.  The CPU's run from its own
+    # spectrum is read beside it, with the CPU's two runs' distance: the
+    # explicit mode takes the dB of each sign's part of the spectrum, so
+    # where a coefficient is near zero the MDCT's rounding moves the
+    # generator's input, and the SR with it, far more than its own size.
+    small = dict(flagship_opt(), n_blocks_global=1, n_blocks_attn_g=1, n_blocks_local=1)
+    for label, extra in (("explicit", dict(arcsinh_transform=False, explicit_encoding=True,
+                                           abs_norm=False, input_nc=2, output_nc=2)),
+                         ("raw", dict(arcsinh_transform=False, raw_mdct=True, input_nc=1))):
+        opt_d = dict(small, **extra)
+        state_d = state_dict_from_jax(*random_jax_trees(build_generator(opt_d), rng))
+        seg = opt_d["segment_length"]
+        x = torch.from_numpy(speech_like(rng, 2 * seg / 16000)[: 2 * seg].reshape(2, seg))
+        card_d = api.create_model(opt_d, "cuda", state_dict=state_d)
+        cpu_d = api.create_model(opt_d, "cpu", state_dict=state_d)
+        (_, sr_card), launches, matmuls = counted(lambda: card_d.inference(x.to(dev)))
+        if any(launches.values()) or not all(matmuls.values()):
+            raise AssertionError(f"11d {label}: launches {launches}, matmul form {matmuls}")
+        sr_card = sr_card.cpu()
+        tc, tp = card_d.transform, cpu_d.transform
+        with torch.inference_mode():
+            spec_card, spec_cpu = tc.mdct(x.to(dev)).cpu(), tp.mdct(x)
+        scale = float(spec_cpu.abs().max())
+        check(f"11d {label} spectrum card vs CPU", max_err(spec_card, spec_cpu), 1e-5 * scale,
+              batch=2, max_abs_ref=scale)
+        fed = build_inference_fn(cpu_d.generator, GT.SharedSpectra(tp, tc), out_length=seg)
+        _, sr_fed = fed(x)
+        _, sr_cpu = cpu_d.inference(x)
+        scale = float(sr_fed.abs().max())
+        check(f"11d {label} SR card vs CPU fed the card's LR spectrum",
+              max_err(sr_card, sr_fed), 2e-3 * scale, batch=2, max_abs_ref=scale)
+        emit({"reading": f"11d {label} SR card vs the CPU's run from its own spectrum",
+              "batch": 2, "max_abs_err": max_err(sr_card, sr_cpu),
+              "cpu_own_vs_cpu_fed": max_err(sr_cpu, sr_fed),
+              "max_abs_ref": float(sr_cpu.abs().max()), "matmul_form": matmuls})
+    emit({"phase": 11, "phase_s": time.perf_counter() - t_phase})
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1091,7 +1410,7 @@ def drive() -> int:
                 x = torch.from_numpy((amp * rng.standard_normal((b, t))).astype(np.float32)).to(dev)
                 got = K.mdct_spectro(x, mat, GAIN, 0.2, 0.0)
                 raw = K.mdct_spectro(x, mat)
-                assert got.shape == (b, K.n_frames_of(t, k), k)
+                assert got.shape == (b, K.n_frames(t, 2 * k, k), k)
                 ref64 = K.mdct_spectro_plain(x.double(), mats["f64"][0], GAIN, 0.2, 0.0)
                 errs[k1] = max(errs[k1], check(
                     "K1 normalized vs f64 plain", max_err(got, ref64), 5e-4,
@@ -1155,7 +1474,7 @@ def drive() -> int:
     cpu_gen.load_state_dict(state, strict=True)
     lr_clip = clip(rng, 2 * 32512 / 48000, 48000)[: 2 * 32512].reshape(2, 32512)
     with torch.inference_mode():
-        lr_spec, _ = model.transform.to_spectro(torch.from_numpy(lr_clip).to(dev))
+        lr_spec, _, _ = model.transform.to_spectro(torch.from_numpy(lr_clip).to(dev))
         g_in = model.transform.g_input(lr_spec)
         cpu_logits = cpu_gen.eval().logits(g_in.cpu())
         card = {}
@@ -1248,7 +1567,7 @@ def drive() -> int:
     rows = {}
     for b in TIMED_BATCHES:
         x = torch.from_numpy(rng.standard_normal((b, 32512)).astype(np.float32)).to(dev)
-        f = K.n_frames_of(32512, 256)
+        f = K.n_frames(32512, 512, 256)
         frames = x.new_empty((b * f, n_fft)).normal_()
         y = torch.from_numpy(rng.uniform(-1, 1, (b, f, k_bins)).astype(np.float32)).to(dev)
         spec2d = y.reshape(b * f, k_bins)
@@ -1294,7 +1613,7 @@ def drive() -> int:
     audio = requests[2]
     for precision, m in (("f32", model), ("bf16", model16)):
         with torch.inference_mode():
-            lr_spec, _ = m.transform.to_spectro(x)
+            lr_spec, _, _ = m.transform.to_spectro(x)
             g_in = m.transform.g_input(lr_spec)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1324,6 +1643,9 @@ def drive() -> int:
     # 10. the train entry point --------------------------------------------------
     train_cli_launches = train_cli_phase(smi, dev, step16_timing)
 
+    # 11. the spectral modes and generator layouts beside the flagship's ---------
+    modes_launches = modes_phase(rng, smi, dev, step16_timing)
+
     replaces = {
         "mdct_spectro": "mdctgan_tpu/ops/pallas_mdct.py:80",
         "imdct_audio": "mdctgan_tpu/ops/pallas_mdct.py:185",
@@ -1331,7 +1653,8 @@ def drive() -> int:
     numbers = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     path_launches = {"serving": launches, "serving_fp16": launches16,
                      "train": train_launches, "train_fp16": train16_launches,
-                     "generate": generate_launches, "train_cli": train_cli_launches}
+                     "generate": generate_launches, "train_cli": train_cli_launches,
+                     **modes_launches}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"mdctgan_tpu_torch/csrc/{name.removesuffix('_dense')}.cu",

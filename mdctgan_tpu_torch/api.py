@@ -61,12 +61,15 @@ def create_model(
     return Model(generator, transform, infer, dev)
 
 
-def serve_segments(model: Model, segments: np.ndarray, batch_size: int) -> np.ndarray:
+def serve_segments(model: Model, segments: np.ndarray, batch_size: int,
+                   phase: Optional[Callable[[int], torch.Generator]] = None) -> np.ndarray:
     """(N, segment_length) LR segments -> (N, segment_length) SR segments,
     through ``model.inference`` in batches of ``batch_size`` (the last one
-    zero-padded).  On the card each batch goes up from pinned memory and
-    comes back into pinned memory without blocking, with one event; the
-    host waits for batch i's event only after batch i+1 is enqueued, so at
+    zero-padded); ``phase(i)``, when given, is the pseudo-phase generator of
+    the batch that starts at segment ``i`` (the dB mode's; see
+    ``SpectralTransform.to_audio``).  On the card each batch goes up from
+    pinned memory and comes back into pinned memory without blocking, with
+    one event; the host waits for batch i's event only after batch i+1 is enqueued, so at
     most ``IN_FLIGHT`` batches are held and the card need not idle while
     the host prepares and launches the next.  The result is that of a
     synchronous loop."""
@@ -90,7 +93,7 @@ def serve_segments(model: Model, segments: np.ndarray, batch_size: int) -> np.nd
         x = torch.from_numpy(segments[i : i + batch_size])
         if on_card:
             x = x.pin_memory().to(model.device, non_blocking=True)
-        _, sr_audio = model.inference(x)
+        _, sr_audio = model.inference(x, None if phase is None else phase(i))
         if on_card:
             host = torch.empty(sr_audio.shape, dtype=sr_audio.dtype, pin_memory=True)
             host.copy_(sr_audio, non_blocking=True)

@@ -7,10 +7,12 @@ Each file is read and DC-shifted, degraded to LR (down to
 ``--lr_sampling_rate`` and back up) or, with ``--is_lr_input``, only
 resampled to the HR rate, optionally given SNR-calibrated noise
 (``--add_noise``, drawn from a ``torch.Generator`` seeded by ``--seed``),
-cut into segments, run through K1 -> G -> K2 in batches of ``--batchSize``
-(``api.serve_segments``), stitched, and scored (MSE, SNR of SR and LR,
-segmental SNR, LSD) against the input at the HR rate, on the model's
-device.
+cut into segments, run through K1 -> G -> K2 (or the matmul form, for the
+configurations K1/K2 do not serve: ``ops/features.py``) in batches of
+``--batchSize`` (``api.serve_segments``; the dB mode's pseudo-phase drawn
+from one generator per batch, ``phase_generators``), stitched, and scored
+(MSE, SNR of SR and LR, segmental SNR, LSD) against the input at the HR
+rate, on the model's device.
 
 A single audio path is the reference's mode: ``metric.txt`` and
 ``sr_audio.wav``, ``lr_audio.wav``, ``hr_audio.wav`` in
@@ -32,7 +34,7 @@ import csv
 import os
 import time
 import wave
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +67,24 @@ def _expand_dataroot(dataroot: str) -> Tuple[List[str], bool]:
     return [dataroot], False
 
 
+def phase_generators(cfg: SpectralConfig,
+                     seed: int) -> Optional[Callable[[int], torch.Generator]]:
+    """The dB mode's pseudo-phase source, as the JAX CLI feeds one key per
+    batch (``fold_in(PRNGKey(seed), i)``): ``i -> `` a CPU generator seeded
+    from (``seed``, ``i``), ``i`` the batch's first segment; None where
+    ``to_audio`` draws no phase (arcsinh, raw, explicit, or no upsampling).
+    The draws are made on the CPU and moved, so the card and the CPU draw
+    the same signs."""
+    if cfg.arcsinh_transform or cfg.raw_mdct or cfg.explicit_encoding or cfg.up_ratio <= 1:
+        return None
+
+    def phase(i: int) -> torch.Generator:
+        state = np.random.SeedSequence([seed, i]).generate_state(2, np.uint32)
+        return torch.Generator().manual_seed(int(state[0]) << 32 | int(state[1]))
+
+    return phase
+
+
 def _process_file(path: str, opt, cfg: SpectralConfig, model: api.Model):
     """One file through degrade -> segment -> G -> stitch -> metrics.
     Returns (sr, lr, hr, hr_rate, metrics)."""
@@ -87,7 +107,8 @@ def _process_file(path: str, opt, cfg: SpectralConfig, model: api.Model):
         lr_np = lr_audio[0].cpu().numpy()
         segments = ds.segments_of(lr_np)
         print(f"#audio segments = {len(segments)}")
-        sr = ds.stitch(api.serve_segments(model, segments, opt.batchSize))
+        sr = ds.stitch(api.serve_segments(model, segments, opt.batchSize,
+                                          phase_generators(cfg, opt.seed)))
 
         # The reference signal at the HR rate: the raw input where the rates
         # agree (the reference's own crop), else resampled to it, so the

@@ -10,10 +10,9 @@ batch statistics to the real rows of a padded tail batch (every other norm
 here is per sample).
 
 Ported: ``GlobalGenerator`` (with and without its 7x7 tanh head) and
-``LocalEnhancer`` with one enhancer branch, with the ``conv``/``resconv``
-downsample and the ``interpolate``/``transconv`` upsample.  Not ported yet
-(they raise ``NotImplementedError``): local attention (``n_attn_local > 0``)
-and ``n_local_enhancers > 1``.  Each generator keeps its configuration as
+``LocalEnhancer`` with any number of enhancer branches and local attention,
+with the ``conv``/``resconv`` downsample and the ``interpolate``/
+``transconv`` upsample.  Each generator keeps its configuration as
 attributes, which ``train/import_torch.generator_entries_for`` reads.
 
 ``dtype`` (``torch.bfloat16`` under ``fp16``) is the compute dtype of every
@@ -139,9 +138,22 @@ class GlobalGenerator(nn.Module):
 
 
 class LocalEnhancer(nn.Module):
-    """Two-scale generator: a headless ``GlobalGenerator`` on the avg-pooled
-    half-resolution input, added into the full-resolution enhancer branch
-    (stem + strided stage, resblocks, upsample, 7x7 tanh head)."""
+    """Multi-scale generator: a headless ``GlobalGenerator`` (``global``, at
+    ``ngf * 2**n_local_enhancers``) on the coarsest level of an avg-pool
+    pyramid, then one enhancer branch per level, coarse to fine, each added
+    into the next.  A branch is a stem + strided stage, the coarser
+    features added, resblocks with an optional attention bottleneck in the
+    middle, and an upsample; the finest branch keeps the bare ``local_*``
+    names and alone carries the 7x7 tanh head, the others are named
+    ``enh{n}_local_*``.
+
+    The bottleneck (``n_attn_local > 0``) is ``local_attn_down0`` (2 ngf_l
+    -> ngf_l), ``local_attn_down_shared`` called twice, the ``BottleStack``
+    ``local_attn`` at the branch's size // 16 (placed even without
+    resblocks), and after the resblocks ``local_attn_up_shared`` called
+    three times: the reference builds those stages by list multiplication,
+    which repeats one module, so each shared module has one set of
+    weights."""
 
     def __init__(
         self,
@@ -158,47 +170,93 @@ class LocalEnhancer(nn.Module):
         proj_factor_g: int = 4,
         heads_g: int = 4,
         dim_head_g: int = 128,
+        proj_factor_l: int = 4,
+        heads_l: int = 4,
+        dim_head_l: int = 128,
         downsample_type: str = "conv",
         upsample_type: str = "interpolate",
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
-        if n_local_enhancers != 1:
-            raise NotImplementedError("n_local_enhancers != 1 is not ported")
-        if n_attn_local > 0:
-            raise NotImplementedError("local attention (n_attn_local > 0) is not ported")
         self.n_downsample_global, self.n_blocks_global = n_downsample_global, n_blocks_global
         self.n_attn_global, self.n_attn_local = n_attn_global, n_attn_local
-        self.n_local_enhancers = n_local_enhancers
+        self.n_local_enhancers, self.n_blocks_local = n_local_enhancers, n_blocks_local
         self.downsample_type, self.upsample_type = downsample_type, upsample_type
         self.compute_dtype = dtype
-        ngf_l = ngf
+        n_enh = n_local_enhancers
         self.add_module("global", GlobalGenerator(
-            input_nc, output_nc, ngf * 2, n_downsample_global, n_blocks_global,
-            n_attn_global, (input_size[0] // 2, input_size[1] // 2),
+            input_nc, output_nc, ngf * 2 ** n_enh, n_downsample_global, n_blocks_global,
+            n_attn_global, (input_size[0] // 2 ** n_enh, input_size[1] // 2 ** n_enh),
             proj_factor_g, heads_g, dim_head_g, downsample_type, upsample_type,
             include_head=False, dtype=dtype))
-        self.local_stem = Conv(input_nc, ngf_l, 7, dtype=dtype)
-        self.local_down = _downsample_layer(downsample_type, ngf_l, ngf_l * 2, dtype)
-        self.n_blocks_local = n_blocks_local
-        for i in range(n_blocks_local):
-            self.add_module(f"local_res{i}", ResnetBlock(ngf_l * 2, dtype))
-        self.local_up = _upsample_layer(upsample_type, ngf_l * 2, ngf_l, dtype)
-        self.local_head = Conv(ngf_l, output_nc, 7, dtype=dtype)
+        # the branches' name prefixes, coarse to fine
+        self.prefixes = [f"enh{n}_" for n in range(1, n_enh)] + [""]
+        for n, prefix in enumerate(self.prefixes, start=1):
+            ngf_l, level = ngf * 2 ** (n_enh - n), 2 ** (n_enh - n)
+
+            def add(name: str, module: nn.Module, prefix=prefix) -> None:
+                self.add_module(prefix + name, module)
+
+            add("local_stem", Conv(input_nc, ngf_l, 7, dtype=dtype))
+            add("local_down", _downsample_layer(downsample_type, ngf_l, ngf_l * 2, dtype))
+            if n_attn_local > 0:
+                add("local_attn_down0", _downsample_layer(
+                    downsample_type, ngf_l * 2, ngf_l, dtype))
+                add("local_attn_down_shared", _downsample_layer(
+                    downsample_type, ngf_l, ngf_l, dtype))
+                add("local_attn", BottleStack(
+                    ngf_l, ngf_l * 2,
+                    (input_size[0] // level // 16, input_size[1] // level // 16),
+                    n_attn_local, proj_factor_l, heads_l, dim_head_l, dtype))
+            for i in range(n_blocks_local):
+                add(f"local_res{i}", ResnetBlock(ngf_l * 2, dtype))
+            if n_attn_local > 0:
+                add("local_attn_up_shared", _upsample_layer(
+                    upsample_type, ngf_l * 2, ngf_l * 2, dtype))
+            add("local_up", _upsample_layer(upsample_type, ngf_l * 2, ngf_l, dtype))
+        self.local_head = Conv(ngf, output_nc, 7, dtype=dtype)
 
     @property
     def coarse(self) -> GlobalGenerator:
         return self._modules["global"]
 
+    def _attn_bottleneck(self, prefix: str, h: torch.Tensor,
+                         sample_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """8x down (the shared stage twice), then the attention stack."""
+        h = instance_norm_relu(self._modules[prefix + "local_attn_down0"](h))
+        shared = self._modules[prefix + "local_attn_down_shared"]
+        for _ in range(2):
+            h = instance_norm_relu(shared(h))
+        return self._modules[prefix + "local_attn"](h, sample_mask)
+
+    def _branch(self, prefix: str, coarse: torch.Tensor, x: torch.Tensor,
+                sample_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """One enhancer branch up to its upsample (the head is the caller's)."""
+        m = self._modules
+        h = instance_norm_relu(m[prefix + "local_stem"](reflect_pad(x, 3)))
+        h = instance_norm_relu(m[prefix + "local_down"](h)) + coarse
+        mid = self.n_blocks_local // 2
+        for i in range(self.n_blocks_local):
+            if i == mid and self.n_attn_local > 0:
+                h = self._attn_bottleneck(prefix, h, sample_mask)
+            h = m[f"{prefix}local_res{i}"](h)
+        if self.n_blocks_local == 0 and self.n_attn_local > 0:
+            h = self._attn_bottleneck(prefix, h, sample_mask)
+        if self.n_attn_local > 0:
+            shared = m[prefix + "local_attn_up_shared"]
+            for _ in range(3):
+                h = instance_norm_relu(shared(h))
+        return instance_norm_relu(m[prefix + "local_up"](h))
+
     def logits(self, x: torch.Tensor,
                sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The output before its tanh."""
-        coarse = self.coarse(avg_pool_3x3_s2(x), sample_mask)
-        h = instance_norm_relu(self.local_stem(reflect_pad(x, 3)))
-        h = instance_norm_relu(self.local_down(h)) + coarse
-        for i in range(self.n_blocks_local):
-            h = getattr(self, f"local_res{i}")(h)
-        h = instance_norm_relu(self.local_up(h))
+        levels = [x]
+        for _ in self.prefixes:
+            levels.append(avg_pool_3x3_s2(levels[-1]))
+        h = self.coarse(levels[-1], sample_mask)
+        for prefix, level in zip(self.prefixes, reversed(levels[:-1])):
+            h = self._branch(prefix, h, level, sample_mask)
         return lift(self.local_head(reflect_pad(h, 3)))
 
     def forward(self, x: torch.Tensor,
@@ -243,6 +301,9 @@ def build_generator(opt) -> nn.Module:
             proj_factor_g=get("proj_factor_g", 4),
             heads_g=get("heads_g", 4),
             dim_head_g=get("dim_head_g", 128),
+            proj_factor_l=get("proj_factor_l", 4),
+            heads_l=get("heads_l", 4),
+            dim_head_l=get("dim_head_l", 128),
             **common,
         )
     raise ValueError(f"generator [{kind}] not implemented")

@@ -96,7 +96,7 @@ def k1_parts(dev) -> dict:
     parts = {}
     for b in BATCHES:
         x, _ = _inputs(b, dev)
-        n_frames = K.n_frames_of(T, 256)
+        n_frames = K.n_frames(T, 512, 256)
         out = torch.empty((b, n_frames, 256), device=dev)
 
         def launch(part):

@@ -29,7 +29,12 @@ that rate: it cannot reach the bound and serves only the other N.
 
 A wrapper given a CPU tensor runs the plain PyTorch version; given a CUDA
 tensor it launches a kernel (adding one to its count in ``LAUNCHES``) or
-raises.  Both take hop = win/2 = n_fft/2 only, as the Pallas kernels did.
+raises.  Both take hop = win/2 = n_fft/2, centred, only, as the Pallas
+kernels did: ``mdct_spectro`` and ``imdct_audio`` raise
+``NotImplementedError`` for any other framing a caller names.  The
+configurations they cannot serve run the matmul form (``ops/mdct.py``
+``MDCT``/``IMDCT``), chosen by ``ops/features.py`` from the configuration
+before any launch.
 The matrix argument gives N and is the plain version's operand; the FFT
 form reads ``fft_tables(N)`` instead, built once per device.
 """
@@ -45,7 +50,7 @@ import torch
 from mdctgan_tpu_torch.ops._build import load_library
 # the matrices and tables the kernels read are built by ``ops/mdct.py``
 from mdctgan_tpu_torch.ops.mdct import (  # noqa: F401
-    fft_tables, imdct, mdct, spectro_matrix, synth_matrix)
+    fft_tables, imdct, mdct, n_frames, spectro_matrix, synth_matrix)
 
 _LN10 = math.log(10.0)
 
@@ -71,12 +76,6 @@ def kernel_for(kernel: str, n_fft: int) -> str:
     for a power of two in [64, 2048], its dense form otherwise."""
     fft = 64 <= n_fft <= 2048 and n_fft & (n_fft - 1) == 0
     return kernel if fft else f"{kernel}_dense"
-
-
-def n_frames_of(t: int, hop_length: int) -> int:
-    """Frames of a centre-padded signal of ``t`` samples (hop = win/2)."""
-    total = t + 2 * hop_length + (-t) % hop_length
-    return total // hop_length - 1
 
 
 # --------------------------------------------------------------------------
@@ -171,7 +170,7 @@ def _k1(name, signal, mat, gain, scale, shift):
             f"{tuple(signal.shape)} and {tuple(mat.shape)}"
         )
     b, t = signal.shape
-    f = n_frames_of(t, n_fft // 2)
+    f = n_frames(t, n_fft, n_fft // 2)
     out = torch.empty((b, f, n_fft // 2), device=signal.device, dtype=torch.float32)
     operand = mat if name.endswith("_dense") else _device_tables(n_fft, signal.device)
     return _launch(name, signal, operand, out, b, t, n_fft, f,
@@ -195,13 +194,17 @@ def _k2(name, spec, synth, gain, scale, shift):
                    float(gain), float(scale), float(shift))
 
 
-def mdct_spectro(signal, mat, gain=0.0, scale=1.0, shift=0.0):
+def mdct_spectro(signal, mat, gain=0.0, scale=1.0, shift=0.0,
+                 hop_length=None, win_length=None):
     """K1: (B, T) float32 -> (B, F, N/2); ``mat`` from ``spectro_matrix``.
-    On CUDA: the form ``kernel_for`` names."""
+    On CUDA: the form ``kernel_for`` names.  A caller's framing
+    (``hop_length``, ``win_length``; default N/2 and N) other than hop =
+    win/2 = N raises ``NotImplementedError`` on any device."""
+    n_fft = mat.shape[0]
+    check_geometry(n_fft, hop_length or n_fft // 2, win_length or n_fft)
     if signal.device.type == "cpu":
         return mdct_spectro_plain(signal, mat, gain, scale, shift)
-    return _k1(kernel_for("mdct_spectro", mat.shape[0]), signal, mat,
-               gain, scale, shift)
+    return _k1(kernel_for("mdct_spectro", n_fft), signal, mat, gain, scale, shift)
 
 
 def mdct_spectro_dense(signal, mat, gain=0.0, scale=1.0, shift=0.0):
@@ -211,13 +214,16 @@ def mdct_spectro_dense(signal, mat, gain=0.0, scale=1.0, shift=0.0):
     return _k1("mdct_spectro_dense", signal, mat, gain, scale, shift)
 
 
-def imdct_audio(spec, synth, gain=0.0, scale=1.0, shift=0.0):
+def imdct_audio(spec, synth, gain=0.0, scale=1.0, shift=0.0,
+                hop_length=None, win_length=None):
     """K2: (B, F, N/2) float32 -> (B, (F-1)*N/2); ``synth`` from
-    ``synth_matrix``.  On CUDA: the form ``kernel_for`` names."""
+    ``synth_matrix``.  On CUDA: the form ``kernel_for`` names.  A framing
+    other than hop = win/2 = N raises, as ``mdct_spectro``'s."""
+    n_fft = 2 * synth.shape[0]
+    check_geometry(n_fft, hop_length or n_fft // 2, win_length or n_fft)
     if spec.device.type == "cpu":
         return imdct_audio_plain(spec, synth, gain, scale, shift)
-    return _k2(kernel_for("imdct_audio", 2 * synth.shape[0]), spec, synth,
-               gain, scale, shift)
+    return _k2(kernel_for("imdct_audio", n_fft), spec, synth, gain, scale, shift)
 
 
 def imdct_audio_dense(spec, synth, gain=0.0, scale=1.0, shift=0.0):

@@ -8,9 +8,11 @@ the port reads differently:
   means ``cuda:n`` and raises without CUDA; more ids raise
   ``NotImplementedError`` (data-parallel serving is not ported).
   ``serving_device`` resolves it.
-* ``--fused_mdct``: ``auto`` and ``on`` launch K1/K2 on a CUDA tensor; ``off``
-  raises, because the plain versions are the CPU path and the spec, not a
-  serving path.
+* ``--fused_mdct``: ``auto`` launches K1/K2 on a CUDA tensor for the
+  configurations they serve and runs the matmul form for the others
+  (``ops/features.py``); ``on`` raises ``ValueError`` for a configuration
+  K1/K2 do not serve, as the JAX package does; ``off`` raises, because the
+  plain versions are the CPU path and the spec, not a serving path.
 * ``--upsample_method``, ``--head_phases``, ``--dilated_vjp``,
   ``--matmul_precision`` and ``--jax_cache_dir`` select equal-math TPU forms
   in JAX; they are parsed, recorded in ``opt.txt`` and ignored.  The port
@@ -32,7 +34,7 @@ from typing import Dict, Mapping
 import torch
 
 from mdctgan_tpu_torch.device import resolve_device
-from mdctgan_tpu_torch.ops.features import SpectralConfig
+from mdctgan_tpu_torch.ops.features import SpectralConfig, fused_compatible
 
 # the reference's audio_config.py constants
 N_FFT = 512
@@ -302,10 +304,10 @@ def serving_device(opt) -> torch.device:
 
 _SPECTRAL_KEYS = (
     "n_fft", "hop_length", "win_length", "center", "lr_sampling_rate",
-    "hr_sampling_rate", "segment_length",
-    "arcsinh_transform", "arcsinh_gain", "explicit_encoding", "raw_mdct",
-    "abs_norm", "src_range", "norm_range", "mask", "mask_hr", "fit_residual",
-    "abs_spectro",
+    "hr_sampling_rate", "sr_sampling_rate", "segment_length",
+    "arcsinh_transform", "arcsinh_gain", "explicit_encoding", "alpha", "raw_mdct",
+    "abs_norm", "src_range", "norm_range", "min_value", "mask", "mask_hr",
+    "fit_residual", "abs_spectro",
 )
 
 
@@ -316,7 +318,12 @@ def spectral_config_from_opt(opt) -> SpectralConfig:
     for k in ("src_range", "norm_range"):
         if k in fields:
             fields[k] = tuple(float(v) for v in fields[k])
-    return SpectralConfig(**fields)
+    cfg = SpectralConfig(**fields)
+    if o.get("fused_mdct", "auto") == "on" and not fused_compatible(cfg):
+        raise ValueError(
+            "--fused_mdct on requires arcsinh_transform + abs_norm with hop = win/2 = "
+            "n_fft/2, center=True and increasing src_range/norm_range")
+    return cfg
 
 
 # The train keys, with their flags' defaults.

@@ -121,16 +121,20 @@ class SharedSpectra:
     def __getattr__(self, attr):
         return getattr(self.transform, attr)
 
-    def _from_source(self, forward, audio):
-        src, dst = self.source.spectro_mat, self.transform.spectro_mat
-        spec, params = forward(audio.to(src.device, src.dtype))
-        return spec.to(dst.device, dst.dtype), params
+    def _from_source(self, forward, audio, generator):
+        src, dst = self.source, self.transform
+        spec, pha, params = forward(audio.to(src.device, src.dtype), generator)
 
-    def lr_forward(self, lr_audio):
-        return self._from_source(self.source.lr_forward, lr_audio)
+        def move(t):
+            return t.to(dst.device, dst.dtype) if isinstance(t, torch.Tensor) else t
 
-    def hr_forward(self, hr_audio):
-        return self._from_source(self.source.hr_forward, hr_audio)
+        return move(spec), move(pha), {k: move(v) for k, v in params.items()}
+
+    def lr_forward(self, lr_audio, generator=None):
+        return self._from_source(self.source.lr_forward, lr_audio, generator)
+
+    def hr_forward(self, hr_audio, generator=None):
+        return self._from_source(self.source.hr_forward, hr_audio, generator)
 
 
 def normwise(ref: Mapping[str, torch.Tensor], got: Mapping[str, torch.Tensor],

@@ -57,13 +57,17 @@ def build_train_step(
     use_ganfeat: bool = True,
     use_pool: bool = False,
     allow_tf32: bool = False,
+    noise: Optional[torch.Generator] = None,
 ) -> Callable[..., Tuple[GANTrainState, Dict[str, torch.Tensor]]]:
     """``train_step(state, batch, pool_old=None, pool_mask=None,
     sample_mask=None, mark=None) -> (state, metrics)``.
 
     ``batch`` holds ``lr_audio`` and ``hr_audio``, (B, T) float32 on the
-    state's device; each gives one K1 launch on a CUDA tensor, outside the
-    autograd graph (the spectra are constants of the step).  The step
+    state's device; each gives one K1 launch on a CUDA tensor where the
+    transform is ``fused``, else one product of the matmul form, outside
+    the autograd graph (the spectra are constants of the step).  ``noise``
+    (a CPU ``torch.Generator``) feeds the masks' noise fills; only a masked
+    configuration without ``fit_residual`` draws from it.  The step
     updates ``state`` in place: G runs once in train mode (its BatchNorm
     running statistics move once), both optimizers step with their
     schedules read at the update count, then ``state.step`` grows by one.
@@ -106,8 +110,8 @@ def build_train_step(
     def step_body(state, batch, pool_old, pool_mask, sample_mask, mark):
         gen, disc = state.generator, state.discriminator
         with torch.no_grad():
-            lr_spec, _ = transform.lr_forward(batch["lr_audio"])
-            hr_spec, _ = transform.hr_forward(batch["hr_audio"])
+            lr_spec, _, _ = transform.lr_forward(batch["lr_audio"], noise)
+            hr_spec, _, _ = transform.hr_forward(batch["hr_audio"], noise)
         mark("k1")
 
         gen.train()
@@ -174,25 +178,30 @@ def build_inference_fn(
     transform: SpectralTransform,
     out_length: Optional[int] = None,
 ) -> Callable:
-    """LR waveform segments (B, T) -> (SR spectro (B, 1, F, K), SR waveform
-    (B, out_length)).
+    """``infer(lr_audio, phase=None)``: LR waveform segments (B, T) -> (SR
+    spectro (B, C, F, K), SR waveform (B, out_length)).
 
-    The LR spectrum (one K1 launch) gets its abs channel and goes through the
-    generator; under fit_residual the LR band of the output is scaled by 1e-3
-    and the LR spectrum added; the result is denormalized with the *LR*
-    normalisation parameters and synthesised (one K2 launch)."""
+    The LR spectrum (``lr_forward``: one K1 launch where the transform is
+    ``fused``, masked under ``mask``) gets its abs channel and goes through
+    the generator; under fit_residual the LR band of the output is scaled
+    by 1e-3 and the LR spectrum added; the result is denormalized with the
+    *LR* normalization bounds and synthesized (one K2 launch where
+    ``fused``) with the LR sign.  ``phase``, a CPU ``torch.Generator``,
+    draws the dB mode's pseudo-phase above the LR rows (ones without
+    one)."""
     cfg = transform.cfg
 
     @torch.inference_mode()
     @float32_policy()
-    def infer(lr_audio: torch.Tensor):
-        lr_spec, lr_np = transform.to_spectro(lr_audio)
+    def infer(lr_audio: torch.Tensor, phase: Optional[torch.Generator] = None):
+        lr_spec, lr_pha, lr_np = transform.lr_forward(lr_audio)
         sr = generator(transform.g_input(lr_spec))
         if cfg.fit_residual:
             lr_part = int(sr.shape[-1] / cfg.up_ratio)
             sr[..., :lr_part] *= 1e-3
             sr = sr + lr_spec
-        sr_audio = transform.to_audio(sr, lr_np, out_length=out_length)
+        sr_audio = transform.to_audio(sr, lr_np, lr_pha, generator=phase,
+                                      out_length=out_length)
         return sr, sr_audio
 
     return infer

@@ -5,9 +5,10 @@
 
 A background input pipeline decodes random crops of a CSV or directory
 corpus (``data/pipeline.py``) and degrades each batch on the card; the
-train step (``train/step.py``, K1 twice a step) updates G and D; the
-generator is scored on the eval corpus through the inference function (K1
-and K2 once per eval batch) into ``eval.csv``; losses go to
+train step (``train/step.py``, K1 twice a step, or the matmul form for
+the configurations K1/K2 do not serve) updates G and D; the generator is
+scored on the eval corpus through the inference function (K1 and K2 once
+per eval batch) into ``eval.csv``; losses go to
 ``loss_log.txt`` and the console, visuals to ``web/`` (and TensorBoard
 with ``--tf_log``); full checkpoints (``train/checkpoint.py``) go to
 ``<checkpoints_dir>/<name>/ckpt/``, the latest every
@@ -185,9 +186,12 @@ def _train(opt, dev: torch.device, interrupted: Dict, t_start: float) -> Dict:
             print(f"imported pretrained D from {d_path}")
 
     pool = ImagePool(opt.pool_size, seed=opt.seed)
+    # the masks' noise fills (a masked run without --fit_residual) draw from
+    # one generator seeded by --seed, as the JAX CLI splits its key per step
     step_kw = dict(use_lsgan=not opt.no_lsgan, lambda_feat=opt.lambda_feat,
                    n_layers_d=opt.n_layers_D, num_d=opt.num_D,
-                   use_ganfeat=not opt.no_ganFeat_loss, use_pool=pool.enabled)
+                   use_ganfeat=not opt.no_ganFeat_loss, use_pool=pool.enabled,
+                   noise=torch.Generator().manual_seed(opt.seed))
     step_fn = build_train_step(transform, g_optimizer(fix_global), d_tx, **step_kw)
     infer_fn = build_inference_fn(state.generator, transform, out_length=seg)
     visualizer = Visualizer(opt)
@@ -305,8 +309,7 @@ def _train(opt, dev: torch.device, interrupted: Dict, t_start: float) -> Dict:
                 is_tail = it == steps_per_epoch - 1 and mask_tail is not None
                 sample_mask = mask_tail if is_tail else mask_full
                 if pool.enabled:
-                    shape = (bs, opt.input_nc + opt.output_nc,
-                             mdct_kernels.n_frames_of(seg, cfg.hop_length), cfg.n_fft // 2)
+                    shape = (bs, opt.input_nc + opt.output_nc, cfg.n_bins, cfg.n_fft // 2)
                     old, mask = pool.presample(shape)
                     state, metrics = step_fn(state, batch, torch.from_numpy(old).to(dev),
                                              torch.from_numpy(mask).to(dev), sample_mask)
@@ -343,8 +346,8 @@ def _train(opt, dev: torch.device, interrupted: Dict, t_start: float) -> Dict:
                     out["losses"].append({"step": opt_steps, "epoch": epoch, **errors})
                 if fire["display"]:
                     with torch.no_grad():
-                        lr_spec, lr_np = transform.lr_forward(batch["lr_audio"][:1])
-                        hr_spec, hr_np = transform.hr_forward(batch["hr_audio"][:1])
+                        lr_spec, _, lr_np = transform.lr_forward(batch["lr_audio"][:1])
+                        hr_spec, _, hr_np = transform.hr_forward(batch["hr_audio"][:1])
                     state.generator.eval()
                     sr_spec, _ = infer_fn(batch["lr_audio"][:1])
                     visualizer.display_current_results(

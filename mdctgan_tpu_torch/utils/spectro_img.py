@@ -72,8 +72,10 @@ def display_spectra(cfg, lr_spec, sr_spec, hr_spec, lr_np, hr_np) -> Dict[str, n
     to HR's range.  ``explicit_encoding`` shows the mean of the two sign
     channels instead, and a mode without arcsinh the normalized spectrum.
 
-    Spectra are (B, C, F, K) tensors or arrays, bounds ``{"min", "max"}``;
-    returns ``{lr,sr,hr}_spectro``, each the first item's (F, K) array."""
+    Spectra are (B, C, F, K) tensors or arrays, bounds ``{"min", "max"}``
+    of floats (``abs_norm``) or of per-sample (B, C, 1, 1) tensors or
+    arrays, on any device; returns ``{lr,sr,hr}_spectro``, each the first
+    item's (F, K) array."""
     lr, sr, hr = _host(lr_spec), _host(sr_spec), _host(hr_spec)
     if cfg.explicit_encoding:
         return {
@@ -88,13 +90,11 @@ def display_spectra(cfg, lr_spec, sr_spec, hr_spec, lr_np, hr_np) -> Dict[str, n
 
     def denorm(x, p):
         u = (x - lo) / span
-        pmin = np.asarray(p["min"], np.float32)
-        pmax = np.asarray(p["max"], np.float32)
+        pmin, pmax = _host(p["min"]), _host(p["max"])
         return u * (pmax - pmin) + pmin
 
     gen = denorm(sr, lr_np)  # the LR bounds, as the reference does
-    gen = np.clip(gen, np.asarray(hr_np["min"], np.float32),
-                  np.asarray(hr_np["max"], np.float32))
+    gen = np.clip(gen, _host(hr_np["min"]), _host(hr_np["max"]))
     return {
         "lr_spectro": denorm(lr, lr_np)[0, 0],
         "sr_spectro": gen[0, 0],

@@ -69,6 +69,57 @@ def test_cuda_tensor_launches_kernel_or_raises(cuda):
                           "mdct_spectro_dense": 0, "imdct_audio_dense": 0}
 
 
+@pytest.mark.cuda
+def test_matmul_form_on_card_matches_cpu(cuda):
+    """A configuration K1/K2 do not serve (dB, per-sample min/max, no
+    centring, hop = win/4) runs the matmul form on the card, never a
+    kernel, and agrees with its CPU run under the float32 policy: the
+    normalized spectrum within 1e-5 of its largest value on the same
+    spectrum, the spectrum and the audio within 1e-5 and 1e-4."""
+    from mdctgan_tpu_torch.device import float32_policy
+    from mdctgan_tpu_torch.ops import mdct as M
+    from mdctgan_tpu_torch.ops.features import SpectralConfig
+
+    cfg = SpectralConfig(n_fft=512, hop_length=128, win_length=512, center=False,
+                         arcsinh_transform=False, abs_norm=False, segment_length=32768)
+    x = torch.from_numpy(0.1 * np.random.default_rng(3).standard_normal((4, 32768)).astype(
+        np.float32))
+    card, cpu = SpectralTransform(cfg, cuda), SpectralTransform(cfg, "cpu")
+    assert not card.fused
+    K.reset_launch_counts()
+    M.reset_matmul_counts()
+    with float32_policy():
+        spec_card, spec_cpu = card.mdct(x.to(cuda)), cpu.mdct(x)
+        norm_card, pha, params = card.to_spectro(x.to(cuda))
+        norm_cpu = cpu.normalize(spec_card.cpu()[:, None])[0]
+        audio_card = card.to_audio(norm_card, params, pha)
+        audio_cpu = cpu.to_audio(norm_card.cpu(), {k: v.cpu() for k, v in params.items()},
+                                 pha.cpu())
+    for got, ref, rel in ((spec_card, spec_cpu, 1e-5), (norm_card, norm_cpu, 1e-5),
+                          (audio_card, audio_cpu, 1e-4)):
+        err = float((got.cpu() - ref).abs().max())
+        assert err <= rel * float(ref.abs().max()), (err, rel)
+    assert all(n == 0 for n in K.LAUNCHES.values())
+    assert M.MATMULS == {"mdct_matmul": 3, "imdct_matmul": 2}
+
+
+@pytest.mark.cuda
+def test_k1_wrapper_refuses_quarter_hop_on_card(cuda):
+    """K1's wrapper, handed hop = win/4 on a CUDA tensor, raises and
+    launches nothing: no framing it does not compute falls back to another
+    path (the transform runs the matmul form for it, chosen from the
+    configuration)."""
+    x = torch.zeros(2, 32512, device=cuda)
+    mat = K.spectro_matrix(512, cuda)
+    K.reset_launch_counts()
+    with pytest.raises(NotImplementedError):
+        K.mdct_spectro(x, mat, GAIN, 0.2, 0.0, hop_length=128, win_length=512)
+    with pytest.raises(NotImplementedError):
+        K.imdct_audio(torch.zeros(2, 128, 256, device=cuda), K.synth_matrix(512, cuda), GAIN,
+                      hop_length=128, win_length=512)
+    assert all(n == 0 for n in K.LAUNCHES.values())
+
+
 def _k1_k2_against_float64(cuda, rng, n_fft, t, frames, kernel_names):
     """K1 and K2 on the card against their plain versions in float64, at
     the bounds of the f32 parity tests, launching only ``kernel_names``.
@@ -84,7 +135,7 @@ def _k1_k2_against_float64(cuda, rng, n_fft, t, frames, kernel_names):
     K.reset_launch_counts()
     got = K.mdct_spectro(torch.from_numpy(x).to(cuda), mat, GAIN, 0.2, 0.0).cpu().double()
     ref = K.mdct_spectro_plain(x64, mat64, GAIN, 0.2, 0.0)
-    assert got.shape == ref.shape == (2, K.n_frames_of(t, m_pts), m_pts)
+    assert got.shape == ref.shape == (2, K.n_frames(t, 2 * m_pts, m_pts), m_pts)
     assert float((got - ref).abs().max()) <= 5e-4
     got = K.mdct_spectro(torch.from_numpy(x).to(cuda), mat).cpu().double()
     assert float((got - K.mdct_spectro_plain(x64, mat64)).abs().max()) <= 2e-3

@@ -62,7 +62,7 @@ from test_import_gold import (
     _randomize,
     _torch_global,
 )
-from test_torch_models import SMALL_GLOBAL, _flax_vars, _parity
+from test_torch_models import SMALL_GLOBAL, _flax_vars, _parity, port_local_kwargs
 
 FLAGS = [
     "--lr_sampling_rate", "16000", "--center", "--arcsinh_transform",
@@ -427,7 +427,8 @@ _KEYSET_CASES = {
 @pytest.mark.parametrize("case", sorted(_KEYSET_CASES))
 def test_tables_and_expected_keys_match_jax(case):
     """Every branch the JAX importer maps, local attention and two enhancer
-    branches included (the port's generator does not build those yet)."""
+    branches included (the port's generators of those layouts load them:
+    ``test_import_generator_matches_jax``)."""
     cfg, kind = _KEYSET_CASES[case]
     if kind == "local":
         flax_g = _flax_local(cfg)
@@ -471,13 +472,26 @@ def _gold_global_port():
         downsample_type=cfg["downsample_type"], upsample_type=cfg["upsample_type"])
 
 
-@pytest.mark.parametrize("case", ["exact", "extra_keys", "param_key_map", "size_mismatch"])
+def _gold_local_port(cfg):
+    return tgen.LocalEnhancer(**port_local_kwargs(cfg))
+
+
+_IMPORT_LAYOUTS = {"local_both_attn": SMALL_LOCAL_BOTH_ATTN, "local_n2": SMALL_LOCAL_N2,
+                   "local_attn_only": SMALL_LOCAL_ATTN_ONLY}
+
+
+@pytest.mark.parametrize("case", ["exact", "extra_keys", "param_key_map", "size_mismatch",
+                                  *sorted(_IMPORT_LAYOUTS)])
 def test_import_generator_matches_jax(rng, case):
     """The port's import of a reference-layout ``.pth`` equals
     ``state_dict_from_jax`` of the JAX import on the same file; a module of
-    another size keeps the port's own init and the rest loads exactly."""
-    flax_g = _flax_global(GOLD_GLOBAL)
-    x = np.zeros((1, 2, *GOLD_GLOBAL["input_size"]), np.float32)
+    another size keeps the port's own init and the rest loads exactly.  The
+    ``local_*`` cases import the local-attention and several-enhancer
+    layouts exactly (the shared modules have one set of weights)."""
+    layout = _IMPORT_LAYOUTS.get(case)
+    flax_g = _flax_global(GOLD_GLOBAL) if layout is None else _flax_local(layout)
+    size = (layout or GOLD_GLOBAL)["input_size"]
+    x = np.zeros((1, 2, *size), np.float32)
     params, stats = _flax_vars(flax_g, x, rng, train=False)
     init_p, init_s = _flax_vars(flax_g, x, rng, train=False)
     entries = jimp.generator_entries_for(flax_g)
@@ -500,7 +514,7 @@ def test_import_generator_matches_jax(rng, case):
         init_vars={"params": init_p, "batch_stats": init_s})
     ref = state_dict_from_jax(j_params, j_stats)
 
-    port = _gold_global_port()
+    port = _gold_global_port() if layout is None else _gold_local_port(layout)
     init_weights(port, torch.Generator().manual_seed(0))
     own = {k: v.clone() for k, v in port.state_dict().items()}
     got, rungs = timp.import_generator(sd, port, param_key_map=key_map)
@@ -677,10 +691,71 @@ def test_generate_cli_fused_mdct_off_raises(corpus, tmp_path):
 
 
 def test_generate_cli_refuses_unported_options(corpus, tmp_path):
+    """What the port still refuses: several ``--gpu_ids`` (data-parallel
+    serving) and the pixelshuffle upsample.  ``--fused_mdct on`` for a
+    configuration K1/K2 do not serve raises ``ValueError``, as the JAX
+    package's ``use_fused=True`` does.  (Local attention and the other
+    normalizations build now: ``test_process_file_modes_match_jax``.)"""
     base = _cli_args(corpus, tmp_path, "x", corpus["csv"])
-    for extra in (["--netG", "local", "--n_blocks_attn_l", "1"], ["--raw_mdct"]):
+    for extra in (["--gpu_ids", "0,1"], ["--upsample_type", "pixelshuffle"]):
         with pytest.raises(NotImplementedError):
             generate_cli.main(base + extra)
+    with pytest.raises(ValueError, match="fused_mdct"):
+        generate_cli.main(base + ["--raw_mdct", "--fused_mdct", "on"])
+    with pytest.raises(ValueError):
+        jcli_opt = _jax_opt(tmp_path, ["--raw_mdct"])
+        JSpectralTransform(j_spectral_config_from_opt(jcli_opt), use_fused=True)
+
+
+_SPECTRAL_FLAGS = ("--center", "--arcsinh_transform", "--abs_spectro", "--abs_norm")
+# Each case: the flags it adds to FLAGS, and whether it drops the flagship
+# spectral flags (the CLI's defaults then: dB, per-sample min/max, no
+# centring, one input channel; 8256 samples make 128 frames uncentred).
+_MODE_CASES = {
+    "raw_mdct": (["--raw_mdct"], False),
+    "local_attn": (["--netG", "local", "--n_blocks_local", "1", "--n_blocks_attn_l", "1",
+                    "--heads_l", "2", "--dim_head_l", "4", "--proj_factor_l", "2"], False),
+    "two_enhancers": (["--netG", "local", "--n_local_enhancers", "2",
+                       "--n_blocks_local", "1"], False),
+    "db_default": (["--input_nc", "1", "--segment_length", "8256", "--batchSize", "4"], True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_MODE_CASES))
+def test_process_file_modes_match_jax(corpus, tmp_path, monkeypatch, case):
+    """One file through each package's ``_process_file`` with options the
+    port refused before: SR within 2e-3 of its largest value, LR 1e-5, the
+    metrics at their bounds.  In the dB case the JAX CLI feeds one key per
+    batch for the pseudo-phase; the file is one batch, and ``randint`` is
+    patched to return the draws of the port's ``phase_generators``."""
+    extra, bare = _MODE_CASES[case]
+    flags = [a for a in FLAGS if not (bare and a in _SPECTRAL_FLAGS)] + extra
+    path = str(corpus["wavs"] / "s1.wav")
+    jopt = JTrainOptions().parse(flags + ["--checkpoints_dir", str(tmp_path)], save=False)
+    opt = options.TrainOptions().parse(flags + ["--checkpoints_dir", str(tmp_path)],
+                                       save=False)
+    cfg, tcfg = j_spectral_config_from_opt(jopt), options.spectral_config_from_opt(opt)
+    flax_g = j_build_generator(jopt)
+    params, stats = _flax_vars(flax_g, np.zeros((1, opt.input_nc, 128, 64), np.float32),
+                               np.random.default_rng(6), train=False)
+    head = "head" if "head" in params else "local_head"
+    params[head]["conv"] = {k: v * 0.01 for k, v in params[head]["conv"].items()}
+    phase = generate_cli.phase_generators(tcfg, opt.seed)
+    assert (phase is not None) == (case == "db_default")
+    if phase is not None:
+        bits = torch.randint(0, 2, (4, 128, 64), generator=phase(0)).numpy()
+        monkeypatch.setattr(jax.random, "randint", lambda key, shape, lo, hi: jnp.asarray(bits))
+    jt = JSpectralTransform(cfg, use_fused=False)
+    ref = jcli._process_file(path, jopt, cfg, jt,
+                             j_build_inference_fn(flax_g, jt, out_length=cfg.segment_length),
+                             {"params": params, "batch_stats": stats})
+    model = api.create_model(opt, "cpu", state_dict=state_dict_from_jax(params, stats))
+    assert model.transform.fused == (case in ("local_attn", "two_enhancers"))
+    sr, lr, hr, rate, m = generate_cli._process_file(path, opt, tcfg, model)
+    assert rate == ref[3] and sr.shape == ref[0].shape and lr.shape == ref[1].shape
+    np.testing.assert_allclose(lr, ref[1], atol=1e-5)
+    np.testing.assert_allclose(sr, ref[0], atol=2e-3 * float(np.abs(ref[0]).max()))
+    _assert_metrics_close(m, ref[4])
 
 
 def test_generate_cli_fp16_matches_jax_bf16(corpus, tmp_path):

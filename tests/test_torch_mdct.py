@@ -58,7 +58,7 @@ def test_k1_plain_matches_pallas(rng, n_fft, t):
         shift=SHIFT, interpret=True))
     got = K.mdct_spectro(torch.from_numpy(x), K.spectro_matrix(n_fft),
                          GAIN, SCALE, SHIFT).numpy()
-    assert got.shape == ref.shape == (3, K.n_frames_of(t, n_fft // 2), n_fft // 2)
+    assert got.shape == ref.shape == (3, K.n_frames(t, n_fft, n_fft // 2), n_fft // 2)
     np.testing.assert_allclose(got, ref, atol=5e-4)
 
 
@@ -78,7 +78,7 @@ def test_to_spectro_matches_unfused_reference(rng, n_fft, t):
     jt = jfeat.SpectralTransform(jfeat.SpectralConfig(**cfg), use_fused=False)
     ref, _, ref_np = jt.to_spectro(jnp.asarray(x))
     tt = tfeat.SpectralTransform(tfeat.SpectralConfig(**cfg), "cpu")
-    got, got_np = tt.to_spectro(torch.from_numpy(x))
+    got, _, got_np = tt.to_spectro(torch.from_numpy(x))
     assert got.shape == ref.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)
     assert got_np == {"min": float(ref_np["min"].item()), "max": float(ref_np["max"].item())}
@@ -101,15 +101,21 @@ def test_normalize_denormalize_match_reference(rng):
 
 
 def test_geometry_and_config_rejections():
+    """K1/K2 still refuse every framing but hop = win/2 = N, the transform's
+    kernels included; the configurations the transform refused before build
+    now, on the matmul form where the JAX package runs its XLA path
+    (a masked flagship config stays on K1).  Their parity with JAX is in
+    ``tests/test_torch_spectral_modes.py``."""
     with pytest.raises(NotImplementedError):
         K.check_geometry(512, 128, 512)
     with pytest.raises(NotImplementedError):
-        tfeat.SpectralTransform(tfeat.SpectralConfig(hop_length=128), "cpu")
-    for bad in (dict(raw_mdct=True), dict(explicit_encoding=True),
-                dict(arcsinh_transform=False), dict(abs_norm=False),
-                dict(mask=True)):
-        with pytest.raises(NotImplementedError):
-            tfeat.SpectralTransform(tfeat.SpectralConfig(**bad), "cpu")
+        K.mdct_spectro(torch.zeros(1, 1024), K.spectro_matrix(512), hop_length=128)
+    t = tfeat.SpectralTransform(tfeat.SpectralConfig(hop_length=128), "cpu")
+    assert not t.fused
+    for bad, fused in ((dict(raw_mdct=True), False), (dict(explicit_encoding=True), False),
+                       (dict(arcsinh_transform=False), False), (dict(abs_norm=False), False),
+                       (dict(mask=True), True), (dict(center=False), False)):
+        assert tfeat.SpectralTransform(tfeat.SpectralConfig(**bad), "cpu").fused == fused
 
 
 @pytest.mark.parametrize("n_fft,frames", [(128, 128), (512, 128)])

@@ -2,6 +2,9 @@
 (eval mode) on the same seeded weights, carried by
 ``weights.state_dict_from_jax``.  CPU, float32, absolute bounds."""
 
+import contextlib
+import functools
+
 import flax.traverse_util as traverse
 import jax
 import jax.numpy as jnp
@@ -13,6 +16,7 @@ from mdctgan_tpu.configs import flagship_generator
 from mdctgan_tpu.models import attention as jattn
 from mdctgan_tpu.models import generator as jgen
 from mdctgan_tpu.models import layers as jlayers
+from mdctgan_tpu.ops import norm as jnorm
 from mdctgan_tpu.train.import_torch import export_to_torch_keys, generator_entries_for
 
 from mdctgan_tpu_torch.configs import flagship_opt
@@ -20,6 +24,8 @@ from mdctgan_tpu_torch.models import attention as tattn
 from mdctgan_tpu_torch.models import generator as tgen
 from mdctgan_tpu_torch.models import layers as tlayers
 from mdctgan_tpu_torch.weights import init_weights, random_jax_trees, state_dict_from_jax
+
+from test_import_gold import SMALL_LOCAL_ATTN_ONLY, SMALL_LOCAL_BOTH_ATTN, SMALL_LOCAL_N2
 
 
 def _nhwc(x):
@@ -45,6 +51,42 @@ def _flax_vars(module, x, rng, **kw):
         for k, s in flat.items()
     }
     return params, traverse.unflatten_dict(stats) if stats else {}
+
+
+def _in_stats_f64(x, relu):
+    """``mdctgan_tpu.ops.norm``'s instance-norm statistics in the input's
+    dtype (the package accumulates them in float32 even for a float64
+    input)."""
+    mean = jnp.mean(x, axis=(1, 2), keepdims=True)
+    centered = x - mean
+    inv = jax.lax.rsqrt(jnp.mean(jnp.square(centered), axis=(1, 2), keepdims=True) + 1e-5)
+    out = centered * inv
+    return (jnp.maximum(out, 0) if relu else out), mean, inv
+
+
+def _in_bwd_f64(x, mean, inv, g, relu):
+    """The package's closed-form instance-norm backward in the input's dtype."""
+    centered = x - mean
+    gp = jnp.where(centered > 0, g, 0) if relu else g
+    m1 = jnp.mean(gp, axis=(1, 2), keepdims=True)
+    mgy = inv * jnp.mean(gp * centered, axis=(1, 2), keepdims=True)
+    return inv * (gp - m1 - (centered * inv) * mgy)
+
+
+@contextlib.contextmanager
+def flax_float64(monkeypatch):
+    """The JAX package in float64: x64 on, and its instance norm's float32
+    statistics and backward replaced by the same formulas in the input's
+    dtype.  Give it float64 variables (``to_f64``)."""
+    with monkeypatch.context() as m:
+        m.setattr(jnorm, "_jax_instance_norm_stats", _in_stats_f64)
+        m.setattr(jnorm, "_xla_instance_norm_bwd", _in_bwd_f64)
+        with jax.enable_x64(True):
+            yield
+
+
+def to_f64(tree):
+    return jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a, np.float64)), tree)
 
 
 def _parity(flax_module, torch_module, x, rng, atol, **kw):
@@ -145,14 +187,122 @@ def test_flagship_local_enhancer_matches_flax(rng):
 
 
 def test_unported_generator_options_raise():
+    """The pixelshuffle upsample is still refused.  Local attention and
+    several enhancers build now (``test_local_layout_matches_flax``)."""
     with pytest.raises(NotImplementedError):
         tgen.build_generator(dict(SMALL_LOCAL, netG="local", upsample_type="pixelshuffle"))
-    with pytest.raises(NotImplementedError):
-        tgen.build_generator(dict(netG="local", n_blocks_attn_l=1,
-                                  upsample_type="interpolate"))
-    with pytest.raises(NotImplementedError):
-        tgen.build_generator(dict(netG="local", n_local_enhancers=2,
-                                  upsample_type="interpolate"))
+    g = tgen.build_generator(dict(netG="local", n_blocks_attn_l=1, n_local_enhancers=2,
+                                  upsample_type="interpolate", heads_l=3, dim_head_l=8,
+                                  proj_factor_l=2))
+    assert g.n_attn_local == 1 and g.prefixes == ["enh1_", ""]
+    assert (g.enh1_local_attn.block0.attn.heads, g.local_attn.block0.attn.dim_head) == (3, 8)
+
+
+def port_local_kwargs(cfg):
+    """``LocalEnhancer`` arguments from a configuration of
+    ``tests/test_import_gold.py``."""
+    return dict(
+        n_local_enhancers=cfg.get("n_local_enhancers", 1), input_nc=cfg["input_nc"],
+        output_nc=cfg["output_nc"], ngf=cfg["ngf"],
+        n_downsample_global=cfg["n_downsample_global"],
+        n_blocks_global=cfg["n_blocks_global"], n_blocks_local=cfg["n_blocks_local"],
+        n_attn_global=cfg["n_attn_g"], n_attn_local=cfg["n_attn_l"],
+        input_size=cfg["input_size"], proj_factor_g=cfg["proj_factor_g"],
+        heads_g=cfg["heads_g"], dim_head_g=cfg["dim_head_g"],
+        proj_factor_l=cfg["proj_factor_l"], heads_l=cfg["heads_l"],
+        dim_head_l=cfg["dim_head_l"], downsample_type=cfg["downsample_type"],
+        upsample_type=cfg["upsample_type"])
+
+
+# the reference's layouts with local attention and several enhancers, plus
+# three enhancers (without local attention: at three levels the coarsest
+# branch's attention runs on a 2x2 map, where the Flax float32 output alone
+# is several 1e-4 from float64)
+LOCAL_LAYOUTS = {
+    "both_attn": SMALL_LOCAL_BOTH_ATTN,
+    "n2": SMALL_LOCAL_N2,
+    "attn_only": SMALL_LOCAL_ATTN_ONLY,
+    "n3": dict(SMALL_LOCAL_N2, n_local_enhancers=3, n_attn_l=0, input_size=(64, 64)),
+}
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("layout", sorted(LOCAL_LAYOUTS))
+def test_local_layout_matches_flax(rng, monkeypatch, layout, train):
+    """Local attention (the shared down and up stages, one set of weights
+    each) and several enhancer branches against Flax: in eval mode, and in
+    train mode with a ``sample_mask`` (the BatchNorm statistics of the real
+    rows, and the running statistics they move to, 1e-5).
+
+    The truth is the Flax module in float64 (``flax_float64``).  The port
+    in float64 is held to it at 1e-6, which no layout error survives
+    (measured 1.4e-7 to 1.7e-7: the head's tanh runs on float32 in Flax).
+    The port's float32 is held within the larger of 5e-4 and 2x Flax's own
+    float32 distance from the truth, and to Flax's float32 at 5e-4 plus
+    that distance.  On this draw the both-attention layout is
+    ill-conditioned in eval mode: Flax's float32 output is 3.2e-3 from the
+    truth and the port's 1.1e-3; every other case has both under 1e-4."""
+    cfg = LOCAL_LAYOUTS[layout]
+    flax_g, port = jgen.LocalEnhancer(**port_local_kwargs(cfg)), \
+        tgen.LocalEnhancer(**port_local_kwargs(cfg))
+    x = rng.standard_normal((3, 2, *cfg["input_size"])).astype(np.float32)
+    params, stats = _flax_vars(flax_g, x, rng, train=False)
+    port.load_state_dict(state_dict_from_jax(params, stats), strict=True)
+    shared = [n for n in port.state_dict() if "_shared." in n]
+    assert bool(shared) == (cfg["n_attn_l"] > 0)
+    mask = np.array([1.0, 1.0, 0.0], np.float32)
+
+    def flax_apply(variables, x, mask):
+        if train:
+            return flax_g.apply(variables, _nhwc(x), train=True, mutable=["batch_stats"],
+                                sample_mask=jnp.asarray(mask))
+        return flax_g.apply(variables, _nhwc(x), train=False), None
+
+    ref, upd = jax.jit(flax_apply)({"params": params, "batch_stats": stats}, x, mask)
+    with torch.no_grad():
+        got = port.train(train)(torch.from_numpy(x), torch.from_numpy(mask))
+    if train:
+        moved = state_dict_from_jax(params, upd["batch_stats"])
+        for k, v in port.state_dict().items():
+            if k.endswith(("running_mean", "running_var")):
+                np.testing.assert_allclose(v.numpy(), moved[k].numpy(), atol=1e-5, err_msg=k)
+    assert got.shape == _nchw(ref).shape == (3, 1, *cfg["input_size"])
+    with flax_float64(monkeypatch):
+        truth = _nchw(jax.jit(flax_apply)(to_f64({"params": params, "batch_stats": stats}),
+                                          x.astype(np.float64), mask.astype(np.float64))[0])
+    port64 = tgen.LocalEnhancer(**port_local_kwargs(cfg)).double()
+    port64.load_state_dict(state_dict_from_jax(params, stats), strict=True)
+    with torch.no_grad():
+        got64 = port64.train(train)(torch.from_numpy(x).double(),
+                                    torch.from_numpy(mask).double()).numpy()
+    np.testing.assert_allclose(got64, truth, atol=1e-6)
+    flax_err = float(np.abs(_nchw(ref) - truth).max())
+    assert float(np.abs(got.numpy() - truth).max()) <= max(5e-4, 2 * flax_err)
+    np.testing.assert_allclose(got.numpy(), _nchw(ref), atol=5e-4 + flax_err)
+
+
+@pytest.mark.parametrize("layout", sorted(LOCAL_LAYOUTS))
+def test_local_layout_dtypes_match_flax(rng, layout):
+    """Under ``fp16`` every module of the new layouts returns the dtype of
+    its Flax twin: the local attention's output float32, its shared stages
+    and the enhancer branches bf16, the head float32."""
+    from test_torch_bf16 import _flax_dtypes, _port_dtypes
+
+    cfg = LOCAL_LAYOUTS[layout]
+    flax_g = jgen.LocalEnhancer(**port_local_kwargs(cfg), dtype=jnp.bfloat16)
+    port = tgen.LocalEnhancer(**port_local_kwargs(cfg), dtype=torch.bfloat16)
+    x = rng.standard_normal((2, 2, *cfg["input_size"])).astype(np.float32)
+    params, stats = _flax_vars(flax_g, x, rng, train=False)
+    ref = _flax_dtypes(flax_g, {"params": params, "batch_stats": stats}, _nhwc(x), train=False)
+    port.load_state_dict(state_dict_from_jax(params, stats), strict=True)
+    got = _port_dtypes(port.eval(), torch.from_numpy(x))
+    assert set(got) <= set(ref), sorted(set(got) - set(ref))
+    assert got == {k: ref[k] for k in got}
+    assert got[""] == "float32"
+    if cfg["n_attn_l"]:
+        assert (got["local_attn"], got["local_attn_up_shared"]) == ("float32", "bfloat16")
+    if cfg.get("n_local_enhancers", 1) > 1:
+        assert got["enh1_local_up"] == "bfloat16"
 
 
 # --------------------------------------------------------------------------

@@ -607,6 +607,24 @@ def test_display_spectra_matches_jax(rng, arcsinh, explicit):
         np.testing.assert_allclose(got[k], np.asarray(ref[k]), atol=1e-6, err_msg=k)
 
 
+@pytest.mark.parametrize("arcsinh,explicit", [(True, False), (False, False), (True, True)])
+def test_display_spectra_per_sample_bounds_match_jax(rng, arcsinh, explicit):
+    """Per-sample bounds (``abs_norm`` off): (B, C, 1, 1) tensors on the
+    port's side, arrays on JAX's, as each package's ``to_spectro`` returns
+    them."""
+    cfg = types.SimpleNamespace(arcsinh_transform=arcsinh, explicit_encoding=explicit,
+                                norm_range=(-1.0, 1.0))
+    specs = [rng.uniform(-1.2, 1.2, (2, 2, 32, 64)).astype(np.float32) for _ in range(3)]
+    bounds = [{"min": rng.uniform(-6, -4, (2, 2, 1, 1)).astype(np.float32),
+               "max": rng.uniform(3, 5, (2, 2, 1, 1)).astype(np.float32)} for _ in range(2)]
+    ref = j_display_spectra(cfg, *specs, *bounds)
+    got = display_spectra(cfg, *(torch.from_numpy(s) for s in specs),
+                          *({k: torch.from_numpy(v) for k, v in b.items()} for b in bounds))
+    assert got.keys() == ref.keys()
+    for k in ref:
+        np.testing.assert_allclose(got[k], np.asarray(ref[k]), atol=1e-6, err_msg=k)
+
+
 def test_html_page_matches_jax(tmp_path):
     for name, mod in (("jax", jhtml), ("port", thtml)):
         page = mod.HTML(str(tmp_path / name), "Experiment = x <y>", refresh=30)
