@@ -12,7 +12,8 @@ Phases (none catches an exception; any failure exits non-zero):
   3. K1 (MDCT + arcsinh + affine) against its plain PyTorch version on the
      card, normalized and raw, in float64 and in float32: the FFT form at
      n_fft 512 (T in {32512, 32000}, batch 1 and each main path's batch:
-     8 serving, 16 generate, 20 train) and at n_fft 64, 128 and 2048
+     8 serving, 16 generate, 20 train, and phase 12's 10 a rank and 4 a
+     replica) and at n_fft 64, 128 and 2048
      (batch 2), and the dense form at n_fft 480 (batch 2).  The
      normalized f32 check runs on noise near full scale: on unit-variance
      noise the f32 plain version is itself ~5e-4 off float64;
@@ -29,7 +30,7 @@ Phases (none catches an exception; any failure exits non-zero):
      on the card and on the CPU against the float64 generator (the card's
      error within ``BF16_FACTOR`` times the CPU's, by max and RMS), and the
      three requests again through a bf16 model, counted the same way;
-  7. timings at each main path's batch (8, 16, 20) of each kernel (FFT
+  7. timings at each main path's batch (4, 8, 10, 16, 20) of each kernel (FFT
      and dense forms at n_fft 512), its plain version and a library matmul
      yardstick: as
      CUDA-graph replays timed by CUDA events (``ms``), as eager calls
@@ -117,12 +118,35 @@ Phases (none catches an exception; any failure exits non-zero):
      small depth, one batch each, card against CPU stage by stage, each
      card stage fed the CPU's input (the spectrum, its normalization and
      the denormalization 1e-5 relative, the logits 5e-4, the IMDCT 1e-4
-     relative; the end-to-end SR read).
+     relative; the end-to-end SR read);
+ 12. data parallelism on the one card, each path with the counts set to 0
+     just before it: (a) ``train_cli.main`` with ``train.sh``'s flags, in
+     bf16 and float32, 2 steps on phase 10's corpus (the second a masked
+     tail of 16) and a save, as one ``--multihost`` rank over NCCL
+     (torchrun's variables, world size 1) against the single-card run on
+     the same batches: the first step's losses bit for bit, the second's
+     within 10d's bounds (1e-3 float32, 2^-7 bf16; the card's backward
+     does not repeat bit for bit), a second single-card run's distance
+     read as the control; K1 twice a step;
+     the bf16 step at batch 20 with and without the world-1 group in
+     turns (the collectives' cost) and the host's agreement on a signal;
+     (b) two ranks on the card over gloo (``parallel.mesh.spawn``), 10 + 10
+     rows of a batch of 20 whose tail mask keeps 16, against one rank on
+     the 20: the same state on both ranks, the losses within 1e-6 + 5e-5
+     relative, the SGD(1) update within phase 8a's bound (the JAX bounds
+     plus 2x the movement of the float64 step on the card between K1's
+     spectra and the plain version's, at this batch); TF32 allowed read as
+     the control; then 4 bf16 Adam steps a rank, timed; (c)
+     ``api.upsample`` over two replicas on the card against one (2e-3 of
+     the largest value; each replica launching K1 and K2 once a batch);
+     (d) ``--gpu_ids 0,1`` refused by both CLIs on a host of one card.
 Every result is one JSON line; a ``kernels`` line sums the kernels up
 (``launches`` on the serving path, ``<path>_launches`` on each other path:
 ``serving_fp16``, ``train`` (float32), ``train_fp16``, ``generate`` and
 ``train_cli`` (both ``--fp16``), phase 11's ``local_attn_serving``,
-``local_attn_train_fp16`` and ``two_enhancers_serving``, and under
+``local_attn_train_fp16`` and ``two_enhancers_serving``, phase 12's
+``dp_multihost_train_cli``, ``dp_two_ranks_train`` (both ranks) and
+``dp_replicas_serving`` (both replicas), and under
 ``paths`` each path's batch, launches and the kernel's numbers at that
 batch) and the last line is ``{"ok": true, "device": {...}}``.  Without
 CUDA, or run outside a checkout of the repository, it prints no result and
@@ -198,11 +222,35 @@ LOCAL_ATTN = dict(mask=True, n_blocks_attn_l=1, heads_l=4, dim_head_l=128, proj_
 MODES_REQUEST_S = 3.7
 MODES_STEPS = 10
 DB_SEGMENT = 33024
+# Phase 12: 12b's global batch (train.sh's 20, as 10 + 10 on two ranks) with
+# a tail mask keeping 16 rows, so rank 0 keeps 10 and rank 1 keeps 6, the
+# bf16 Adam steps each rank times after its checks, and the seed of its
+# weights and batch (each rank draws them itself, from this seed); 12a's
+# flags: train.sh's, then 1 epoch of 2 steps on phase 10's corpus (36 train
+# files: the second step a tail of 16) and its save, nothing else firing, on
+# one decode thread (the prefetcher's order across threads is not fixed, and
+# a rank decodes on one, so the single-card run reads the same batches);
+# 12c's replicas; the bounds on 12a's second step against the single-card
+# run, 10d's on a step after a restore (the card does not repeat a backward
+# bit for bit)
+DP_BATCH = 20
+DP_REAL_ROWS = 16
+DP_TIMED_STEPS = 4
+DP_SEED = 12
+DP_REPLICAS = 2
+DP_CLI_FLAGS = TRAIN_CLI_FLAGS + [
+    "--niter", "1", "--niter_decay", "0", "--save_epoch_freq", "1", "--print_freq", "20",
+    "--display_freq", "1000000", "--eval_freq", "1000000", "--save_latest_freq", "1000000",
+    "--nThreads", "1"]
+DP_STEP2_BOUNDS = {"f32": 1e-3, "bf16": 2.0 ** -7}
 # Each main path's batch: phases 3, 4 and 7 check and time every kernel at each.
 PATH_BATCHES = {"serving": MAIN_BATCH, "serving_fp16": MAIN_BATCH, "train": TRAIN_BATCH,
                 "train_fp16": TRAIN_BATCH, "generate": GENERATE_BATCH,
                 "train_cli": TRAIN_BATCH, "local_attn_serving": MAIN_BATCH,
-                "local_attn_train_fp16": TRAIN_BATCH, "two_enhancers_serving": MAIN_BATCH}
+                "local_attn_train_fp16": TRAIN_BATCH, "two_enhancers_serving": MAIN_BATCH,
+                "dp_multihost_train_cli": TRAIN_BATCH,
+                "dp_two_ranks_train": DP_BATCH // 2,
+                "dp_replicas_serving": MAIN_BATCH // DP_REPLICAS}
 BATCHES = tuple(sorted({1, *PATH_BATCHES.values()}))
 TIMED_BATCHES = tuple(sorted(set(PATH_BATCHES.values())))
 # Published peaks: float32 FMA rate outside the tensor cores, memory rate.
@@ -809,7 +857,8 @@ def generate_phase(rng, smi: str, dev: torch.device) -> dict:
 
 def train_cli_phase(smi: str, dev: torch.device, bare_step: dict,
                     flags=TRAIN_CLI_FLAGS) -> dict:
-    """Phase 10; returns each kernel's launches in the checked run."""
+    """Phase 10; returns each kernel's launches in the checked run, and its
+    median print-only step."""
     import contextlib
     import io
 
@@ -1053,7 +1102,7 @@ def train_cli_phase(smi: str, dev: torch.device, bare_step: dict,
             "save_background_ms": [w["write_ms"] for w in writes],
             "max_memory_allocated_bytes": peak,
             "phase_s": time.perf_counter() - t_phase}})
-    return launches
+    return launches, {"median_step_ms_after_first": statistics.median(clean) if clean else None}
 
 
 def modes_phase(rng, smi: str, dev: torch.device, bf16_step: dict) -> dict:
@@ -1339,6 +1388,394 @@ def modes_phase(rng, smi: str, dev: torch.device, bf16_step: dict) -> dict:
               "cpu_own_vs_cpu_fed": max_err(sr_cpu, sr_fed),
               "max_abs_ref": float(sr_cpu.abs().max()), "matmul_form": matmuls})
     emit({"phase": 11, "phase_s": time.perf_counter() - t_phase})
+    return paths
+
+
+def dp_rank(ranks, seed: int, updates_path: str) -> dict:
+    """Phase 12b in one rank (``parallel.mesh.spawn``; the two ranks share
+    the card over gloo): the flagship's SGD(1) step on this rank's rows of
+    the global batch, in float32 and with TF32 allowed (the control), then
+    ``DP_TIMED_STEPS`` bf16 Adam steps timed after one warm-up.  The
+    weights and the batch come from ``seed``, as in the parent.  Rank 0
+    saves both steps' updates to ``updates_path``; every rank returns its
+    losses, the digest of its nets after each step, its launches, its times
+    and TF32's setting as the fresh process found it."""
+    import hashlib
+
+    from mdctgan_tpu_torch.configs import flagship_opt
+    from mdctgan_tpu_torch.device import float32_policy
+    from mdctgan_tpu_torch.models.discriminator import build_discriminator
+    from mdctgan_tpu_torch.models.generator import build_generator
+    from mdctgan_tpu_torch.ops import mdct_kernels as K
+    from mdctgan_tpu_torch.ops.features import SpectralTransform
+    from mdctgan_tpu_torch.options import spectral_config_from_opt, train_options
+    from mdctgan_tpu_torch.train import grad_truth as GT
+    from mdctgan_tpu_torch.train.schedule import make_optimizers
+    from mdctgan_tpu_torch.train.state import create_train_state
+    from mdctgan_tpu_torch.train.step import build_train_step
+    from mdctgan_tpu_torch.weights import random_jax_trees, state_dict_from_jax
+
+    out = {"rank": ranks.rank, "cudnn_allow_tf32_at_start": torch.backends.cudnn.allow_tf32}
+    K.reset_launch_counts()
+    dev = ranks.device
+    opt = flagship_opt()
+    cfg = spectral_config_from_opt(opt)
+    rng = np.random.default_rng(seed)
+    g_sd = state_dict_from_jax(*random_jax_trees(build_generator(opt), rng))
+    d_sd = state_dict_from_jax(*random_jax_trees(build_discriminator(opt), rng))
+    batch = GT.inputs("noise", rng, DP_BATCH, cfg.segment_length)
+    rows = ranks.host_rows(DP_BATCH)
+    local = {k: v[rows] for k, v in batch.items()}
+    mask = (torch.arange(DP_BATCH, device=dev) < DP_REAL_ROWS).float()[rows]
+    transform = SpectralTransform(cfg, dev)
+    updates, out["losses"], out["digest"], out["step_s"] = {}, {}, {}, {}
+    with float32_policy():
+        for name, tf32 in (("f32", False), ("tf32", True)):
+            nets = GT.load_nets(opt, g_sd, d_sd)
+            t0 = time.perf_counter()
+            out["losses"][name], updates[name] = GT.sgd_step(
+                opt, nets, transform, local, dev, allow_tf32=tf32, sample_mask=mask,
+                ranks=ranks)
+            out["step_s"][name] = time.perf_counter() - t0
+            h = hashlib.sha256()
+            for net in nets.values():
+                for t in net.state_dict().values():
+                    h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+                             .numpy().tobytes())
+            out["digest"][name] = h.hexdigest()
+            del nets
+        if ranks.is_main:
+            torch.save({name: {net: {k: v.float() for k, v in u.items()}
+                               for net, u in per.items()} for name, per in updates.items()},
+                       updates_path)
+        del updates
+        torch.cuda.empty_cache()
+
+        opt16 = dict(opt, fp16=True)
+        tro = train_options(opt16)
+        g_tx, d_tx = make_optimizers(tro["lr"], tro["beta1"], tro["niter"], tro["niter_decay"],
+                                     1000)
+        state = create_train_state(build_generator(opt16), build_discriminator(opt16), g_tx,
+                                   d_tx, device=dev, rng=torch.Generator().manual_seed(SEED),
+                                   ranks=ranks)
+        step = build_train_step(transform, g_tx, d_tx, n_layers_d=tro["n_layers_D"],
+                                num_d=tro["num_D"], ranks=ranks)
+        on_card = {k: torch.from_numpy(v).to(dev) for k, v in local.items()}
+        times, losses = [], []
+        for _ in range(DP_TIMED_STEPS + 1):
+            t0 = time.perf_counter()
+            state, metrics = step(state, on_card)
+            # float() waits for the step; the next step's collectives wait
+            # for the other rank
+            losses.append({k: float(v) for k, v in metrics.items()})
+            times.append((time.perf_counter() - t0) * 1e3)
+        out.update(bf16_step_ms=times[1:], bf16_losses=losses, launches=dict(K.LAUNCHES),
+                   max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev)
+                   if dev.type == "cuda" else None)
+    return out
+
+
+def parallel_phase(smi: str, dev: torch.device, bare_step: dict, cli_step: dict) -> dict:
+    """Phase 12, data parallelism on the one card: (a) the train CLI as one
+    ``--multihost`` rank over NCCL against the single-card run, and the
+    world-1 step's collective cost; (b) two ranks sharing the card over
+    gloo against one rank; (c) ``api.upsample`` over two replicas on the
+    card against one; (d) ``--gpu_ids 0,1`` refused.  Returns each kernel's
+    launches on the three paths."""
+    import os
+
+    from mdctgan_tpu_torch import api, generate_cli, train_cli
+    from mdctgan_tpu_torch.configs import flagship_opt
+    from mdctgan_tpu_torch.data.synthetic import speech_like
+    from mdctgan_tpu_torch.models.discriminator import build_discriminator
+    from mdctgan_tpu_torch.models.generator import build_generator
+    from mdctgan_tpu_torch.ops import mdct_kernels as K
+    from mdctgan_tpu_torch.ops.features import SpectralTransform
+    from mdctgan_tpu_torch.options import spectral_config_from_opt, train_options
+    from mdctgan_tpu_torch.parallel import mesh
+    from mdctgan_tpu_torch.train import grad_truth as GT
+    from mdctgan_tpu_torch.train.schedule import make_optimizers
+    from mdctgan_tpu_torch.train.state import create_train_state
+    from mdctgan_tpu_torch.train.step import build_train_step
+    from mdctgan_tpu_torch.weights import random_jax_trees, state_dict_from_jax
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    opt = flagship_opt()
+    cfg = spectral_config_from_opt(opt)
+    seg = cfg.segment_length
+    paths = {}
+    torchrun = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+                "MASTER_ADDR": "127.0.0.1"}
+    saved_env = {k: os.environ.get(k) for k in (*torchrun, "MASTER_PORT")}
+
+    def one_rank_env():
+        os.environ.update(torchrun, MASTER_PORT=str(mesh.free_port()))
+
+    def part_done(part):
+        emit({"phase": 12, "part": part, "t_s": time.perf_counter() - t_phase})
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="parallel_", dir=ROOT / "build") as tmp:
+            tmp = Path(tmp)
+            # 12a. the train CLI as one --multihost rank (NCCL, world size 1)
+            # against the single-card run on the same batches, bf16 and f32
+            subprocess.run([sys.executable, str(ROOT / "tools" / "make_corpus.py"),
+                            str(tmp / "corpus"), *CORPUS], check=True, timeout=300)
+            data = ["--dataroot", str(tmp / "corpus" / "train.csv"),
+                    "--evalroot", str(tmp / "corpus" / "eval.csv")]
+            cli_launches = {name: 0 for name in K.LAUNCHES}
+            cli_runs = {}
+            card = ["--gpu_ids", "0" if dev.type == "cuda" else "-1"]
+            # Step 1 reads the same bits in both runs (the same batch and
+            # state; at world 1 the shares and the summed statistics are the
+            # single card's numbers), so it is held bit for bit, as 10d holds
+            # its first step after a restore.  Step 2 follows one backward,
+            # which the card does not repeat bit for bit: held at 10d's
+            # bounds, with a second single-card run's distance read as the
+            # control.  (On a tail of 2 rows two single-card runs' second
+            # steps read up to 1.1e-3 apart in float32 and 7e-3 in bf16, so
+            # the tail here is 16 rows.)
+            for precision in ("bf16", "f32"):
+                flags = DP_CLI_FLAGS + data
+                if precision == "f32":
+                    flags = [f for f in flags if f != "--fp16"]
+                kinds = [("single", card), ("multihost", card + ["--multihost"]),
+                         ("single_again", card)]
+                runs = {}
+                for kind, extra in kinds:
+                    one_rank_env()
+                    K.reset_launch_counts()
+                    run = train_cli.main(flags + extra + [
+                        "--checkpoints_dir", str(tmp / f"{precision}_{kind}"), "--name", "run"])
+                    launches = dict(K.LAUNCHES)
+                    run.pop("state")
+                    runs[kind] = run
+                    if kind == "multihost":
+                        for k, v in launches.items():
+                            cli_launches[k] += v
+                        expected = {name: 0 for name in K.LAUNCHES}
+                        expected["mdct_spectro"] = 2 * len(run["steps"])
+                        if launches != expected or launches != run["launches"]:
+                            raise AssertionError(f"12a {precision} launches {launches}, "
+                                                 f"expected {expected}")
+                        ckpt = tmp / f"{precision}_{kind}" / "run" / "ckpt"
+                        if not ((ckpt / "epoch_index.json").is_file()
+                                and list(ckpt.glob("step_*.pt"))):
+                            raise AssertionError(f"12a {precision}: no save under {ckpt}")
+                losses = {kind: [{k: v for k, v in row.items() if k not in ("step", "epoch")}
+                                 for row in r["losses"]] for kind, r in runs.items()}
+                if not (len(losses["single"]) == len(losses["multihost"]) == 2 and all(
+                        math.isfinite(v) for row in losses["multihost"] for v in row.values())):
+                    raise AssertionError(f"12a {precision}: losses {losses}")
+
+                def rel(a, b, i):
+                    return max(abs(a[i][k] - v) / max(abs(v), 1e-30) for k, v in b[i].items())
+
+                check(f"12a: train CLI --multihost world 1 (NCCL) vs one card, {precision}, "
+                      "step 1 (losses, bit for bit)", rel(losses["multihost"], losses["single"], 0),
+                      0.0, losses=losses)
+                check(f"12a: train CLI --multihost world 1 vs one card, {precision}, step 2 "
+                      "(losses, rel)", rel(losses["multihost"], losses["single"], 1),
+                      DP_STEP2_BOUNDS[precision], control_two_single_card_runs=rel(
+                          losses["single_again"], losses["single"], 1))
+                cli_runs[precision] = {kind: {
+                    "step_ms": [st["ms"] for st in r["steps"]],
+                    "agree_ms": [st["agree_ms"] for st in r["steps"]],
+                    "setup_ms": r["setup_ms"],
+                    "save_blocking_ms": [sv["blocking_ms"] for sv in r["saves"]]}
+                    for kind, r in runs.items()}
+            paths["dp_multihost_train_cli"] = cli_launches
+            emit({"dp_train_cli_runs": cli_runs, "card": smi})
+            part_done("12a_cli")
+
+            # the world-1 step's collectives: the bf16 step with and without
+            # the group, in turns on the same card; and one host agreement
+            opt16 = dict(opt, fp16=True)
+            tro = train_options(opt16)
+            g_tx, d_tx = make_optimizers(tro["lr"], tro["beta1"], tro["niter"],
+                                         tro["niter_decay"], 1000)
+            noise = GT.inputs("noise", np.random.default_rng(SEED), TRAIN_BATCH, seg)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in noise.items()}
+            one_rank_env()
+            ranks = mesh.init_multihost(dev.type)
+            try:
+                runs = {}
+                for kind, r in (("plain", None), ("world1", ranks)):
+                    state = create_train_state(
+                        build_generator(opt16), build_discriminator(opt16), g_tx, d_tx,
+                        device=dev, rng=torch.Generator().manual_seed(SEED), ranks=r)
+                    step = build_train_step(SpectralTransform(cfg, dev), g_tx, d_tx,
+                                            n_layers_d=tro["n_layers_D"], num_d=tro["num_D"],
+                                            ranks=r)
+                    runs[kind] = (state, step, [])
+
+                def timed(kind):
+                    state, step, times = runs[kind]
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    step(state, batch)
+                    end.record()
+                    end.synchronize()
+                    times.append(start.elapsed_time(end))
+
+                for i in range(12):  # in turns; the first two of each warm up
+                    for kind in (("plain", "world1") if i % 2 else ("world1", "plain")):
+                        timed(kind)
+                agree = []
+                for _ in range(50):
+                    t0 = time.perf_counter()
+                    mesh.any_rank(False, ranks)
+                    agree.append((time.perf_counter() - t0) * 1e3)
+                ms = {kind: statistics.median(runs[kind][2][2:]) for kind in runs}
+                emit({"timing": {
+                    "name": "dp_world1_step_overhead", "card": smi, "precision": "bf16",
+                    "batch": TRAIN_BATCH, "plain_ms": ms["plain"], "world1_ms": ms["world1"],
+                    "collective_overhead_ms": ms["world1"] - ms["plain"],
+                    "plain_ms_all": runs["plain"][2], "world1_ms_all": runs["world1"][2],
+                    "phase8_bare_step_ms": bare_step["ms"],
+                    "phase10_cli_step_ms": cli_step.get("median_step_ms_after_first"),
+                    "agree_ms_median": statistics.median(agree),
+                    "agree_ms_max": max(agree)}})
+                del runs
+            finally:
+                torch.distributed.destroy_process_group()
+            torch.cuda.empty_cache()
+            part_done("12a_overhead")
+
+            # 12b. two ranks on the card over gloo (NCCL refuses two ranks on
+            # one device) against one rank, at batch 20 = 10 + 10 with a tail
+            # mask keeping 16.  The updates are held as phase 8a holds card
+            # against CPU: each tensor k within rel*||ref_k|| + 1e-3 +
+            # C*||T_K1 - T_plain||_k, T the float64 step on the card fed K1's
+            # spectra and the plain version's, at this batch and draw.
+            rng = np.random.default_rng(DP_SEED)
+            g_sd = state_dict_from_jax(*random_jax_trees(build_generator(opt), rng))
+            d_sd = state_dict_from_jax(*random_jax_trees(build_discriminator(opt), rng))
+            global_batch = GT.inputs("noise", rng, DP_BATCH, seg)
+            mask = (torch.arange(DP_BATCH, device=dev) < DP_REAL_ROWS).float()
+            card_t = SpectralTransform(cfg, dev)
+            t0 = time.perf_counter()
+            ref_losses, ref = GT.sgd_step(opt, GT.load_nets(opt, g_sd, d_sd), card_t,
+                                          global_batch, dev, sample_mask=mask)
+            one_rank_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            f64_t = SpectralTransform(cfg, dev, torch.float64)
+            truths = [GT.sgd_step(opt, GT.load_nets(opt, g_sd, d_sd, torch.float64),
+                                  GT.SharedSpectra(f64_t, source), global_batch, dev,
+                                  sample_mask=mask)[1]
+                      for source in (card_t, SpectralTransform(cfg, cpu))]
+            moved = {net: {k: float((t - truths[1][net][k]).norm())
+                           for k, t in truths[0][net].items()} for net in GT.BOUNDS}
+            f64_s = time.perf_counter() - t0
+            del truths, g_sd, d_sd
+            torch.cuda.empty_cache()
+            part_done("12b_reference")
+            ranks_out = mesh.spawn(dp_rank, [dev, dev],
+                                   args=(DP_SEED, str(tmp / "updates.pt")),
+                                   backend="gloo", deadline_s=600)
+            updates = torch.load(tmp / "updates.pt", weights_only=True)
+            part_done("12b_ranks")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    first = ranks_out[0]
+    if not all(r["digest"] == first["digest"] for r in ranks_out):
+        raise AssertionError("12b: the two ranks' states differ after the step")
+    loss_share = max(abs(first["losses"]["f32"][k] - v) / (1e-6 + 5e-5 * abs(v))
+                     for k, v in ref_losses.items())
+    result = {"batch": DP_BATCH, "real_rows": DP_REAL_ROWS, "ranks": 2, "backend": "gloo",
+              "losses_one_rank": ref_losses, "losses_two_ranks": first["losses"]["f32"],
+              "one_rank_step_s": one_rank_s, "f64_truths_s": f64_s}
+    shares = {}
+    for name in ("f32", "tf32"):
+        for net, rel in GT.BOUNDS.items():
+            got = {k: v.double() for k, v in updates[name][net].items()}
+            slack = {k: GT.CONDITIONING_FACTOR * v for k, v in moved[net].items()}
+            r = GT.normwise(ref[net], got, rel, slack=slack)
+            plain = GT.normwise(ref[net], got, rel)
+            result[f"{name}_{net}"] = {"max_share_of_bound": r["max_share"],
+                                       "worst": r["worst"],
+                                       "max_share_of_jax_bound": plain["max_share"]}
+            shares[name, net] = r["max_share"]
+    emit({"control": "12b: two ranks with TF32 allowed vs one rank (updates)",
+          **{net: result[f"tf32_{net}"] for net in GT.BOUNDS}})
+    check("12b: two ranks (gloo, one card) vs one rank, losses (share of 1e-6 + 5e-5 rel)",
+          loss_share, 1.0, **{k: v for k, v in result.items() if not k.startswith("tf32")})
+    check("12b: two ranks vs one rank, updates (share of phase 8a's bound)",
+          max(shares["f32", net] for net in GT.BOUNDS), 1.0)
+    launches = {name: sum(r["launches"][name] for r in ranks_out) for name in K.LAUNCHES}
+    expected = {name: 0 for name in K.LAUNCHES}
+    expected["mdct_spectro"] = 2 * 2 * (2 + DP_TIMED_STEPS + 1)  # two ranks, K1 twice a step
+    if launches != expected:
+        raise AssertionError(f"12b launches {launches}, expected {expected}")
+    if not all(math.isfinite(v) for r in ranks_out for row in r["bf16_losses"]
+               for v in row.values()):
+        raise AssertionError("12b: a bf16 loss is not finite")
+    paths["dp_two_ranks_train"] = launches
+    emit({"timing": {
+        "name": "dp_two_ranks_step", "card": smi, "backend": "gloo, two ranks on one card",
+        "batch_per_rank": DP_BATCH // 2, "precision": "bf16",
+        "step_ms": {r["rank"]: r["bf16_step_ms"] for r in ranks_out},
+        "median_step_ms": {r["rank"]: statistics.median(r["bf16_step_ms"]) for r in ranks_out},
+        "sgd_step_s": {r["rank"]: r["step_s"] for r in ranks_out},
+        "cudnn_allow_tf32_at_rank_start": [r["cudnn_allow_tf32_at_start"] for r in ranks_out],
+        "max_memory_allocated_bytes": {r["rank"]: r["max_memory_allocated_bytes"]
+                                       for r in ranks_out}}})
+
+    # 12c. api.upsample over two replicas on the card against one, at the
+    # serving chain's bound
+    rng = np.random.default_rng(SEED)
+    model = api.create_model(opt, dev, state_dict=state_dict_from_jax(
+        *random_jax_trees(build_generator(opt), rng)))
+    request = speech_like(rng, MODES_REQUEST_S)
+    two = mesh.make_mesh([dev] * DP_REPLICAS)
+    kw = dict(is_lr_input=True, gen_overlap=512, batch_size=MAIN_BATCH)
+    K.reset_launch_counts()
+    single = api.upsample(request, 16000, model, **kw)
+    # one replica's launches a batch, each replica launching once
+    expected = {name: DP_REPLICAS * n for name, n in K.LAUNCHES.items()}
+    K.reset_launch_counts()
+    over = api.upsample(request, 16000, model, mesh=two, **kw)
+    launches = dict(K.LAUNCHES)
+    if launches != expected or launches["mdct_spectro"] == 0:
+        raise AssertionError(f"12c launches {launches}, expected {expected}")
+    paths["dp_replicas_serving"] = launches
+    scale = float(np.abs(single).max())
+    check("12c: upsample over two replicas on the card vs one (waveform)",
+          float(np.abs(over - single).max()), 2e-3 * scale, request_s=MODES_REQUEST_S,
+          replicas=DP_REPLICAS, max_abs_ref=scale)
+    walls = {"one": [], "replicas": []}
+    for _ in range(5):
+        for kind, extra in (("one", {}), ("replicas", {"mesh": two})):
+            t0 = time.perf_counter()
+            api.upsample(request, 16000, model, **kw, **extra)
+            walls[kind].append((time.perf_counter() - t0) * 1e3)
+    emit({"timing": {"name": "dp_replicas_upsample", "card": smi,
+                     "request_s": MODES_REQUEST_S, "replicas": DP_REPLICAS,
+                     **{f"{k}_ms": statistics.median(v) for k, v in walls.items()},
+                     "note": "upsample(mesh=) copies the generator to each replica per call"}})
+    del model
+
+    # 12d. two ids on a host of one card: both CLIs refuse before any work
+    if torch.cuda.device_count() == 1:
+        for cli in (train_cli, generate_cli):
+            try:
+                with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+                    cli.main(DP_CLI_FLAGS + ["--gpu_ids", "0,1", "--checkpoints_dir", tmp,
+                                             "--name", "x"])
+            except ValueError as e:
+                emit({"check": f"12d: {cli.__name__} --gpu_ids 0,1 on one card raises",
+                      "error": str(e)})
+            else:
+                raise AssertionError(f"{cli.__name__} --gpu_ids 0,1 ran on one card")
+    emit({"phase": 12, "phase_s": time.perf_counter() - t_phase})
     return paths
 
 
@@ -1641,10 +2078,15 @@ def drive() -> int:
     generate_launches = generate_phase(rng, smi, dev)
 
     # 10. the train entry point --------------------------------------------------
-    train_cli_launches = train_cli_phase(smi, dev, step16_timing)
+    train_cli_launches, cli_step = train_cli_phase(smi, dev, step16_timing)
 
     # 11. the spectral modes and generator layouts beside the flagship's ---------
     modes_launches = modes_phase(rng, smi, dev, step16_timing)
+
+    # 12. data parallelism on the one card --------------------------------------
+    del model, state, cpu_gen
+    torch.cuda.empty_cache()
+    parallel_launches = parallel_phase(smi, dev, step16_timing, cli_step)
 
     replaces = {
         "mdct_spectro": "mdctgan_tpu/ops/pallas_mdct.py:80",
@@ -1654,7 +2096,7 @@ def drive() -> int:
     path_launches = {"serving": launches, "serving_fp16": launches16,
                      "train": train_launches, "train_fp16": train16_launches,
                      "generate": generate_launches, "train_cli": train_cli_launches,
-                     **modes_launches}
+                     **modes_launches, **parallel_launches}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"mdctgan_tpu_torch/csrc/{name.removesuffix('_dense')}.cu",

@@ -1,11 +1,18 @@
 """High-level serving API: ``create_model``, the segment loop that every
-serving caller shares (``serve_segments``) and the one-call ``upsample``."""
+serving caller shares (``serve_segments``) and the one-call ``upsample``.
+
+Data-parallel serving runs in one process, as the JAX package's does: one
+generator replica per device of a ``parallel.mesh.Mesh`` (``replicate``),
+each segment batch split over them, every replica enqueued from the one
+thread (launches return at once), and the results gathered on the first
+device."""
 
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
-from typing import Callable, Mapping, Optional
+from typing import Callable, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -17,6 +24,7 @@ from mdctgan_tpu_torch.models.generator import build_generator
 from mdctgan_tpu_torch.ops.features import SpectralTransform
 from mdctgan_tpu_torch.ops.resample import degrade_lr, resample
 from mdctgan_tpu_torch.options import as_dict, spectral_config_from_opt
+from mdctgan_tpu_torch.parallel.mesh import Mesh
 from mdctgan_tpu_torch.train.step import build_inference_fn
 from mdctgan_tpu_torch.weights import init_weights
 
@@ -61,7 +69,26 @@ def create_model(
     return Model(generator, transform, infer, dev)
 
 
-def serve_segments(model: Model, segments: np.ndarray, batch_size: int,
+def replicate(model: Model, mesh: Mesh) -> List[Model]:
+    """One replica of ``model`` per device of ``mesh``, in its order:
+    ``model`` itself where it lies on that device (the first time), else a
+    copy of its generator moved there, with a transform and an inference
+    function of its own."""
+    replicas = []
+    for dev in mesh.devices:
+        if dev == model.device and all(r is not model for r in replicas):
+            replicas.append(model)
+            continue
+        generator = copy.deepcopy(model.generator).to(dev).eval()
+        transform = SpectralTransform(model.transform.cfg, dev, model.transform.dtype)
+        infer = build_inference_fn(generator, transform,
+                                   out_length=model.transform.cfg.segment_length)
+        replicas.append(Model(generator, transform, infer, dev))
+    return replicas
+
+
+def serve_segments(model: Union[Model, Sequence[Model]], segments: np.ndarray,
+                   batch_size: int,
                    phase: Optional[Callable[[int], torch.Generator]] = None) -> np.ndarray:
     """(N, segment_length) LR segments -> (N, segment_length) SR segments,
     through ``model.inference`` in batches of ``batch_size`` (the last one
@@ -72,15 +99,28 @@ def serve_segments(model: Model, segments: np.ndarray, batch_size: int,
     one event; the host waits for batch i's event only after batch i+1 is enqueued, so at
     most ``IN_FLIGHT`` batches are held and the card need not idle while
     the host prepares and launches the next.  The result is that of a
-    synchronous loop."""
-    seg = model.transform.cfg.segment_length
+    synchronous loop.
+
+    ``model`` may be a list of replicas (``replicate``): each batch is then
+    split into equal shares, one a replica in order, each drawing its
+    pseudo-phase from its own ``phase(i)`` at the batch's shape and keeping
+    its rows, so the draws are the one device's; the shares are gathered on
+    the first replica's device.  ``batch_size`` must divide by their
+    number."""
+    replicas = [model] if isinstance(model, Model) else list(model)
+    n_rep = len(replicas)
+    if batch_size % n_rep:
+        raise ValueError(f"batch_size {batch_size} not divisible by mesh size {n_rep}")
+    share = batch_size // n_rep
+    first = replicas[0]
+    seg = first.transform.cfg.segment_length
     n = len(segments)
     n_pad = (-n) % batch_size
     if n_pad:
         segments = np.concatenate([segments, np.zeros((n_pad, seg), np.float32)])
     segments = np.ascontiguousarray(segments, np.float32)
     out = np.empty((len(segments), seg), np.float32)
-    on_card = model.device.type == "cuda"
+    on_card = first.device.type == "cuda"
     pending = collections.deque()
 
     def drain_one():
@@ -90,15 +130,22 @@ def serve_segments(model: Model, segments: np.ndarray, batch_size: int,
         out[i : i + batch_size] = host.numpy()
 
     for i in range(0, len(segments), batch_size):
-        x = torch.from_numpy(segments[i : i + batch_size])
-        if on_card:
-            x = x.pin_memory().to(model.device, non_blocking=True)
-        _, sr_audio = model.inference(x, None if phase is None else phase(i))
+        parts = []
+        for j, rep in enumerate(replicas):
+            x = torch.from_numpy(segments[i + j * share: i + (j + 1) * share])
+            if rep.device.type == "cuda":
+                x = x.pin_memory().to(rep.device, non_blocking=True)
+            rows = None if n_rep == 1 else (j * share, batch_size)
+            _, sr = rep.inference(x, None if phase is None else phase(i), rows)
+            parts.append(sr)
+        sr_audio = parts[0] if n_rep == 1 else torch.cat(
+            [p.to(first.device, non_blocking=True) for p in parts])
         if on_card:
             host = torch.empty(sr_audio.shape, dtype=sr_audio.dtype, pin_memory=True)
-            host.copy_(sr_audio, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
+            with torch.cuda.device(first.device):  # the event on the copy's stream
+                host.copy_(sr_audio, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
         else:
             host, done = sr_audio, None
         pending.append((i, host, done))
@@ -116,12 +163,20 @@ def upsample(
     is_lr_input: bool = False,
     gen_overlap: int = 0,
     batch_size: int = 8,
+    mesh: Optional[Mesh] = None,
 ) -> np.ndarray:
     """Super-resolve an in-memory waveform: degrade it (or only resample it
     to the HR rate if ``is_lr_input``), segment, infer in batches of
     ``batch_size`` (``serve_segments``), stitch, and crop to the input's
-    duration at the HR rate."""
+    duration at the HR rate.
+
+    ``mesh``: serve data-parallel over its devices, ``model`` copied to
+    each (``replicate``, on every call; a server replicates once and calls
+    ``serve_segments``); ``batch_size`` must divide by the mesh size."""
     cfg = model.transform.cfg
+    if mesh is not None and batch_size % mesh.size:
+        raise ValueError(f"batch_size {batch_size} not divisible by mesh size {mesh.size}")
+    replicas = model if mesh is None else replicate(model, mesh)
     ds = AudioAppDataset(audio, sample_rate, cfg.segment_length, gen_overlap)
     raw = torch.from_numpy(ds.raw_audio)[None].to(model.device)
     with torch.inference_mode(), float32_policy():
@@ -129,6 +184,6 @@ def upsample(
             lr = resample(raw, sample_rate, cfg.hr_sampling_rate)
         else:
             lr = degrade_lr(raw, sample_rate, cfg.lr_sampling_rate, cfg.hr_sampling_rate)
-    sr_segments = serve_segments(model, ds.segments_of(lr[0].cpu().numpy()), batch_size)
+    sr_segments = serve_segments(replicas, ds.segments_of(lr[0].cpu().numpy()), batch_size)
     out_len = int(round(len(ds.raw_audio) * cfg.hr_sampling_rate / sample_rate))
     return ds.stitch(sr_segments)[:out_len]

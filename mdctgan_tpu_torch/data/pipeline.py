@@ -15,6 +15,17 @@ worker's ``conv1d`` could otherwise run in TF32 while the consumer is
 between steps, and a side stream's work would need an event before the
 step reads it.  On the card the degrade is a few launches, queued behind
 the step like any other.
+
+Under data parallelism (``ranks``; ``parallel/mesh.py``) every rank of a
+host reads and degrades the host's whole batch, from the same seeded stream,
+and keeps its own rows: the host batch is split over the host's ranks as
+the JAX package's one process a host shards its batch over its devices.
+The C++ prefetcher's order across its threads is not fixed, so there it
+decodes on one thread, which makes the stream the same on every rank.
+Every host seeds its stream with the same ``seed``, as the JAX package's
+hosts do, so hosts given one corpus draw the same rows.  With several
+hosts, a batch at a rate other than the probed one is refused, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from mdctgan_tpu_torch.data.dataset import AudioDataset, unsupported_note
 from mdctgan_tpu_torch.device import resolve_device
 from mdctgan_tpu_torch.ops.features import SpectralConfig
 from mdctgan_tpu_torch.ops.resample import add_noise_snr, degrade_lr, fix_length, resample
+from mdctgan_tpu_torch.parallel import mesh
 
 Degrade = Callable[[torch.Tensor, torch.Generator], Dict[str, torch.Tensor]]
 
@@ -55,13 +67,15 @@ def make_degrade_fn(cfg: SpectralConfig, orig_freq: int, add_noise: bool,
 
 class InputPipeline:
     """Batches of ``batch_size`` degraded segments on ``device``, read
-    ahead by a background thread (``queue_size`` batches)."""
+    ahead by a background thread (``queue_size`` batches); with ``ranks``,
+    this rank's rows of each host batch of ``batch_size``."""
 
     def __init__(self, dataset: AudioDataset, cfg: SpectralConfig, batch_size: int,
                  orig_freq: Optional[int] = None, add_noise: bool = False,
                  snr: float = 55.0, seed: int = 42, queue_size: int = 4,
-                 device="cuda", n_threads: int = 4):
+                 device="cuda", n_threads: int = 4, ranks: Optional[mesh.Ranks] = None):
         self.dataset = dataset
+        self.ranks = ranks
         self.cfg = cfg
         self.batch_size = batch_size
         self.device = resolve_device(device)
@@ -91,7 +105,8 @@ class InputPipeline:
         # the C++ prefetcher crops at random; serial mode stays in Python
         if not dataset.serial and native.load_library() is not None:
             self._prefetcher = native.NativePrefetcher(
-                dataset.files, dataset.segment_length, n_threads=n_threads,
+                dataset.files, dataset.segment_length,
+                n_threads=n_threads if ranks is None else 1,
                 queue_cap=queue_size * batch_size, seed=seed)
         self._thread = threading.Thread(target=self._work, daemon=True)
         self._thread.start()
@@ -117,6 +132,12 @@ class InputPipeline:
         generator state (one noise draw, as the JAX package's one key), and
         picks each row from its rate's result."""
         uniq = np.unique(rates)
+        if self.ranks is not None and self.ranks.hosts > 1 and (
+                len(uniq) > 1 or int(uniq[0]) != self.orig_freq):
+            raise ValueError(
+                f"mixed/non-probed sample rates {sorted(uniq.tolist())} are unsupported "
+                f"under multi-host training (pipeline probed {self.orig_freq} Hz); "
+                "single-host runs handle them")
         if len(uniq) == 1:
             return self._degrade_for(int(uniq[0]))(wave, self._generator)
         start = self._generator.get_state()
@@ -169,10 +190,11 @@ class InputPipeline:
 
     def __next__(self) -> Dict[str, torch.Tensor]:
         """The next batch on the device: ``{"hr_audio", "lr_audio"}``, each
-        (batch_size, segment_length) float32."""
+        (batch_size, segment_length) float32, or this rank's rows of it."""
         wave, rates = self._next_host()
         with torch.no_grad():
-            return self._degrade_batch(wave.to(self.device, non_blocking=True), rates)
+            batch = self._degrade_batch(wave.to(self.device, non_blocking=True), rates)
+        return mesh.put_global_batch(batch, self.ranks)
 
     def close(self) -> None:
         """Stop the worker, then destroy the prefetcher, or leak it where the

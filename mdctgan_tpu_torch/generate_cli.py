@@ -22,7 +22,10 @@ serves the whole corpus with one model load: ``<stem>_sr.wav`` per file
 file that cannot be read is skipped.
 
 The model runs on ``cuda:<gpu_ids>`` (default 0; raises without CUDA);
-``--gpu_ids -1`` asks for the CPU.  ``--fp16`` serves with the bf16
+``--gpu_ids -1`` asks for the CPU.  Several ids serve data-parallel in this
+process, one generator replica a card and each segment batch split over
+them (``api.replicate``; the JAX CLI's mesh), unless ``--batchSize`` does
+not divide by their number: then it says so and serves on the first card.  ``--fp16`` serves with the bf16
 generator (``models/layers.py``); the transforms stay float32.  Weights
 come from ``<load_pretrain>/<which_epoch>_net_G.pth`` in the reference's
 key layout, or from the ``ckpt/`` of a run of the port's train CLI.
@@ -46,7 +49,8 @@ from mdctgan_tpu_torch.device import float32_policy
 from mdctgan_tpu_torch.ops.features import SpectralConfig
 from mdctgan_tpu_torch.ops.metrics import compute_metrics, nanmean_rows
 from mdctgan_tpu_torch.ops.resample import add_noise_snr, degrade_lr, resample
-from mdctgan_tpu_torch.options import TrainOptions, serving_device, spectral_config_from_opt
+from mdctgan_tpu_torch.options import TrainOptions, serving_devices, spectral_config_from_opt
+from mdctgan_tpu_torch.parallel.mesh import make_mesh
 from mdctgan_tpu_torch.train.restore import load_generator_state
 
 
@@ -85,9 +89,11 @@ def phase_generators(cfg: SpectralConfig,
     return phase
 
 
-def _process_file(path: str, opt, cfg: SpectralConfig, model: api.Model):
-    """One file through degrade -> segment -> G -> stitch -> metrics.
-    Returns (sr, lr, hr, hr_rate, metrics)."""
+def _process_file(path: str, opt, cfg: SpectralConfig, model: api.Model,
+                  replicas: Optional[List[api.Model]] = None):
+    """One file through degrade -> segment -> G (``model``, or each of
+    ``replicas``) -> stitch -> metrics, on ``model``'s device.  Returns
+    (sr, lr, hr, hr_rate, metrics)."""
     try:
         ds = AudioTestDataset(path, cfg.segment_length, overlap=opt.gen_overlap)
     except (OSError, EOFError, ValueError, wave.Error) as e:
@@ -107,7 +113,7 @@ def _process_file(path: str, opt, cfg: SpectralConfig, model: api.Model):
         lr_np = lr_audio[0].cpu().numpy()
         segments = ds.segments_of(lr_np)
         print(f"#audio segments = {len(segments)}")
-        sr = ds.stitch(api.serve_segments(model, segments, opt.batchSize,
+        sr = ds.stitch(api.serve_segments(replicas or model, segments, opt.batchSize,
                                           phase_generators(cfg, opt.seed)))
 
         # The reference signal at the HR rate: the raw input where the rates
@@ -144,11 +150,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     device)."""
     t0 = time.perf_counter()
     opt = TrainOptions().parse(argv, save=False)
-    dev = serving_device(opt)
+    devices = serving_devices(opt)
+    if len(devices) > 1 and opt.batchSize % len(devices):
+        print(f"[mesh] batchSize {opt.batchSize} not divisible by {len(devices)} "
+              "devices — serving on 1 device")
+        devices = devices[:1]
     cfg = spectral_config_from_opt(opt)
-    model = api.create_model(opt, dev)
+    model = api.create_model(opt, devices[0])
     state, rungs = load_generator_state(opt, model.generator)
     model.generator.load_state_dict(state, strict=True)
+    replicas = [model]
+    if len(devices) > 1:
+        replicas = api.replicate(model, make_mesh(devices))
+        print(f"[mesh] data-parallel serving over {len(devices)} devices")
     expr_dir = os.path.join(opt.checkpoints_dir, opt.name)
     os.makedirs(expr_dir, exist_ok=True)
     paths, batch_mode = _expand_dataroot(opt.dataroot)
@@ -158,7 +172,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if not batch_mode:
         t0 = time.perf_counter()
         try:
-            sr, lr, hr, hr_rate, m = _process_file(paths[0], opt, cfg, model)
+            sr, lr, hr, hr_rate, m = _process_file(paths[0], opt, cfg, model, replicas)
         except AudioLoadError:
             raise SystemExit("load audio failed")
         with open(os.path.join(expr_dir, "metric.txt"), "w") as f:
@@ -177,7 +191,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         print(f"=== {path}")
         t0 = time.perf_counter()
         try:
-            sr, _, _, _, m = _process_file(path, opt, cfg, model)
+            sr, _, _, _, m = _process_file(path, opt, cfg, model, replicas)
         except AudioLoadError as e:
             print(f"[batch] skipping: {e}")
             continue

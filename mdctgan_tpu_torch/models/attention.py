@@ -4,7 +4,10 @@ The port of ``mdctgan_tpu/models/attention.py`` (itself a re-implementation
 of ``bottleneck_transformer_pytorch==0.1.4`` with ``downsample=False`` and
 ``rel_pos_emb=False``).  BatchNorm follows ``module.train()``/``.eval()``:
 batch statistics, optionally restricted to the real rows of a padded batch
-by ``mask``, in train mode; running statistics in eval mode.
+by ``mask``, in train mode; running statistics in eval mode.  Under data
+parallelism (``sync_batch_stats``) the batch statistics are the global
+batch's, summed across the ranks, as the JAX package's mesh step computes
+them over the whole batch.
 
 Layout, as in the reference: the qkv channel axis splits as
 ``(3, heads, dim_head)`` with the 3 outermost, tokens are the row-major
@@ -25,6 +28,7 @@ import torch
 import torch.nn as nn
 
 from mdctgan_tpu_torch.models.layers import conv_forward, lift
+from mdctgan_tpu_torch.parallel.mesh import sum_over_ranks
 
 
 class AbsPosEmb2D(nn.Module):
@@ -77,11 +81,19 @@ class _BN2d(nn.Module):
     The running variance tracks the Bessel-corrected n/(n-1) estimate, with
     n = sum(mask)*H*W, as ``torch.nn.BatchNorm2d`` does.  Stock
     ``BatchNorm2d`` cannot mask, hence this module.  A bf16 input is
-    normalized in float32 and the output is float32."""
+    normalized in float32 and the output is float32.
+
+    With ``across_ranks`` (``sync_batch_stats``) the statistics are those
+    of the global batch: the masked sums and count are summed over the
+    ranks first, then the squared deviations about that global mean, each
+    sum with its gradient (``parallel.mesh.sum_over_ranks``); every rank
+    gets the same statistics and running statistics.  ``SyncBatchNorm``
+    cannot mask either."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps, self.momentum = eps, momentum
+        self.across_ranks = False
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -93,7 +105,17 @@ class _BN2d(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             hw = x.shape[2] * x.shape[3]
-            if mask is None:
+            if self.across_ranks:
+                m = (torch.ones(x.shape[0], device=x.device, dtype=x.dtype) if mask is None
+                     else mask.to(x.dtype)).reshape(-1, 1, 1, 1)
+                sums = sum_over_ranks(torch.cat(((x * m).sum(dim=(0, 2, 3)),
+                                                 m.sum().reshape(1))))
+                n = sums[-1] * hw
+                bessel = n / torch.clamp(n - 1.0, min=1.0)
+                mean = sums[:-1] / n
+                var = sum_over_ranks(
+                    ((x - mean[:, None, None]).square() * m).sum(dim=(0, 2, 3))) / n
+            elif mask is None:
                 n = float(x.shape[0] * hw)
                 bessel = n / max(n - 1.0, 1.0)
                 mean = x.mean(dim=(0, 2, 3))
@@ -111,6 +133,16 @@ class _BN2d(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((x - mean[:, None, None]) * mul[:, None, None]
                 + self.bias[:, None, None])
+
+
+def sync_batch_stats(module: nn.Module) -> nn.Module:
+    """Make every masked BatchNorm under ``module`` take the global batch's
+    statistics across the ranks of the default process group; returns
+    ``module``."""
+    for m in module.modules():
+        if isinstance(m, _BN2d):
+            m.across_ranks = True
+    return module
 
 
 class BatchNorm(nn.Module):

@@ -26,6 +26,14 @@ The random draws (the mask's noise fill, the dB path's pseudo-phase) come
 from an explicit CPU ``torch.Generator`` and are moved to the data's
 device, so the card and the CPU draw the same values; without a generator
 the fill is zeros and the pseudo-phase ones, as without an ``rng`` in JAX.
+
+Under data parallelism (``parallel/mesh.py``) a call holds some rows of a
+global batch, named by ``rows`` = (its first row, the global rows): each
+draw is made at the global shape and this call's rows kept (the fill's
+scale is the global draw's range), so every rank or replica draws what one
+device would, as the JAX package draws with one key over its mesh.  K1 and
+K2 run on the call's own rows only: the port's counterpart of the JAX
+package's ``_shard_mapped``, which runs the Pallas kernels per shard.
 """
 
 from __future__ import annotations
@@ -45,6 +53,18 @@ _LN10 = math.log(10.0)
 # The normalization bounds: floats under ``abs_norm``, else (B, C, 1, 1)
 # tensors of each sample's min and max.
 NormParam = Dict[str, Union[float, torch.Tensor]]
+# (first row, global rows) of a call's share of a global batch
+Rows = Optional[Tuple[int, int]]
+
+
+def _draw_shape(shape: Tuple[int, ...], rows: Rows) -> Tuple[int, ...]:
+    """The shape a draw for ``shape`` is made at: the global batch's."""
+    return tuple(shape) if rows is None else (rows[1], *shape[1:])
+
+
+def _own_rows(x: torch.Tensor, rows: Rows, b: int) -> torch.Tensor:
+    """A draw at the global shape -> the ``b`` rows of this call."""
+    return x if rows is None else x[rows[0]:rows[0] + b]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,6 +227,7 @@ class SpectralTransform:
         mask: bool = False,
         mask_size: int = -1,
         generator: Optional[torch.Generator] = None,
+        rows: Rows = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor], NormParam]:
         """(B, T) waveform -> (normalized (B, C, F, K) spectro, pha, bounds).
 
@@ -217,7 +238,8 @@ class SpectralTransform:
         ``pha`` (the train step discards it, and inference draws none).
         ``mask`` replaces the top ``mask_size`` columns (``lr_mask_size``
         at -1) with zeros, or, with a ``generator`` and without
-        ``fit_residual``, with normal noise divided by its range."""
+        ``fit_residual``, with normal noise divided by its range; ``rows``
+        draws it at the global batch's shape (module docstring)."""
         cfg = self.cfg
         pha = None
         if self.fused:
@@ -241,26 +263,27 @@ class SpectralTransform:
                 else:
                     # drawn where the generator lives, into pinned memory
                     # for the card, so the copy does not stop the host
-                    fill = torch.randn(shape, generator=generator, device=generator.device,
-                                       dtype=log_spectro.dtype,
+                    fill = torch.randn(_draw_shape(shape, rows), generator=generator,
+                                       device=generator.device, dtype=log_spectro.dtype,
                                        pin_memory=log_spectro.is_cuda
                                        and generator.device.type == "cpu")
                     fill = fill.to(log_spectro.device, non_blocking=True)
-                    fill = fill / (fill.max() - fill.min())
+                    fill = _own_rows(fill / (fill.max() - fill.min()), rows, shape[0])
                 log_spectro = torch.cat((keep, fill), dim=-1)
         return log_spectro, pha, norm_param
 
     def lr_forward(self, lr_audio: torch.Tensor,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None, rows: Rows = None):
         """The LR branch: ``to_spectro`` masked by ``cfg.mask``."""
-        return self.to_spectro(lr_audio, mask=self.cfg.mask, generator=generator)
+        return self.to_spectro(lr_audio, mask=self.cfg.mask, generator=generator, rows=rows)
 
     def hr_forward(self, hr_audio: torch.Tensor,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None, rows: Rows = None):
         """The HR branch: ``to_spectro`` masked by ``cfg.mask_hr`` at
         ``hr_mask_size``."""
         return self.to_spectro(hr_audio, mask=self.cfg.mask_hr,
-                               mask_size=self.cfg.hr_mask_size, generator=generator)
+                               mask_size=self.cfg.hr_mask_size, generator=generator,
+                               rows=rows)
 
     def to_audio(
         self,
@@ -269,6 +292,7 @@ class SpectralTransform:
         pha: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         out_length: Optional[int] = None,
+        rows: Rows = None,
     ) -> torch.Tensor:
         """(B, C, F, K) normalized spectro -> waveform, denormalized with
         ``norm_param``.  One K2 launch on a CUDA tensor where ``fused``
@@ -277,7 +301,8 @@ class SpectralTransform:
         The explicit mode recombines its channels as ``(s0 - s1)/(2 alpha -
         1)``.  The dB mode multiplies by ``pha`` (the LR sign) on the first
         ``F/up_ratio`` rows and by a pseudo-phase of +-1 on the rest, drawn
-        from ``generator`` (ones without one), when ``up_ratio > 1``."""
+        from ``generator`` (ones without one), when ``up_ratio > 1``;
+        ``rows`` draws it at the global batch's shape (module docstring)."""
         cfg = self.cfg
         if self.fused:
             audio = mdct_kernels.imdct_audio(
@@ -297,8 +322,9 @@ class SpectralTransform:
                     if generator is None:
                         pseudo = torch.ones_like(pha)
                     else:
-                        bits = torch.randint(0, 2, pha.shape, generator=generator,
-                                             device=generator.device)
+                        bits = _own_rows(torch.randint(
+                            0, 2, _draw_shape(pha.shape, rows), generator=generator,
+                            device=generator.device), rows, pha.shape[0])
                         pseudo = (2 * bits - 1).to(pha.device, pha.dtype)
                     pha = torch.cat((pha[..., :lr_rows, :], pseudo[..., lr_rows:, :]), dim=-2)
                     spectro = spectro * pha

@@ -4,10 +4,14 @@
 package's ``options.py``: the same flags, defaults and ``opt.txt``.  What
 the port reads differently:
 
-* ``--gpu_ids``: ``-1`` is the explicit request for the CPU; one id ``n``
-  means ``cuda:n`` and raises without CUDA; more ids raise
-  ``NotImplementedError`` (data-parallel serving is not ported).
-  ``serving_device`` resolves it.
+* ``--gpu_ids``: ``-1`` is the explicit request for the CPU; ids ``a,b,..``
+  mean ``cuda:a``, ``cuda:b``, .. and raise without CUDA or where this host
+  has no such card (the JAX CLIs clamp the count silently): one replica a
+  card in the generate CLI, one rank a card in the train CLI
+  (``parallel/mesh.py``).  ``serving_devices`` resolves it.
+* ``--multihost``: the train CLI joins the process group that torchrun's
+  variables describe, on ``cuda:<LOCAL_RANK>`` (``--gpu_ids -1``: the CPU);
+  ``--batchSize`` is then each host's batch.
 * ``--fused_mdct``: ``auto`` launches K1/K2 on a CUDA tensor for the
   configurations they serve and runs the matmul form for the others
   (``ops/features.py``); ``on`` raises ``ValueError`` for a configuration
@@ -29,7 +33,7 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping
 
 import torch
 
@@ -168,15 +172,21 @@ class BaseOptions:
             print(f"{k}: {v}")
         print("-------------- End ----------------")
 
-        expr_dir = os.path.join(self.opt.checkpoints_dir, self.opt.name)
-        os.makedirs(expr_dir, exist_ok=True)
-        if save and not getattr(self.opt, "continue_train", False):
-            with open(os.path.join(expr_dir, "opt.txt"), "wt") as f:
-                f.write("------------ Options -------------\n")
-                for k, v in sorted(d.items()):
-                    f.write(f"{k}: {v}\n")
-                f.write("-------------- End ----------------\n")
+        os.makedirs(os.path.join(self.opt.checkpoints_dir, self.opt.name), exist_ok=True)
+        if save:
+            write_options(self.opt)
         return self.opt
+
+
+def write_options(opt: argparse.Namespace) -> None:
+    """``<checkpoints_dir>/<name>/opt.txt``, unless ``--continue_train``."""
+    if getattr(opt, "continue_train", False):
+        return
+    with open(os.path.join(opt.checkpoints_dir, opt.name, "opt.txt"), "wt") as f:
+        f.write("------------ Options -------------\n")
+        for k, v in sorted(vars(opt).items()):
+            f.write(f"{k}: {v}\n")
+        f.write("-------------- End ----------------\n")
 
 
 class TrainOptions(BaseOptions):
@@ -286,20 +296,25 @@ def as_dict(opt) -> Mapping:
     return opt if isinstance(opt, Mapping) else vars(opt)
 
 
-def serving_device(opt) -> torch.device:
-    """The device that ``--gpu_ids`` (parsed to a list) and ``--fused_mdct``
-    ask for: ``[]`` (``-1``) the CPU, ``[n]`` ``cuda:n`` (raises without
-    CUDA).  More ids raise ``NotImplementedError``; ``--fused_mdct off``
-    raises ``ValueError``."""
+def serving_devices(opt) -> List[torch.device]:
+    """The devices that ``--gpu_ids`` (parsed to a list) and ``--fused_mdct``
+    ask for: ``[]`` (``-1``) the CPU, ``[a, b, ..]`` ``cuda:a``, ``cuda:b``,
+    ..  Raises without CUDA, ``ValueError`` for an id this host has no card
+    for and for ``--fused_mdct off``."""
     o = as_dict(opt)
     if o.get("fused_mdct", "auto") == "off":
         raise ValueError("--fused_mdct off: the port always runs its MDCT kernels "
                          "on the card; use --gpu_ids -1 for the CPU")
     ids = list(o.get("gpu_ids", [0]))
-    if len(ids) > 1:
-        raise NotImplementedError(
-            f"--gpu_ids {ids}: data-parallel serving (DDP) is not ported")
-    return resolve_device(f"cuda:{ids[0]}" if ids else "cpu")
+    if not ids:
+        return [resolve_device("cpu")]
+    devices = [resolve_device(f"cuda:{i}") for i in ids]
+    count = torch.cuda.device_count()
+    if max(ids) >= count:
+        raise ValueError(f"--gpu_ids {','.join(map(str, ids))}: this host has {count} "
+                         "CUDA device(s)")
+    return devices
+
 
 
 _SPECTRAL_KEYS = (
@@ -335,10 +350,6 @@ TRAIN_DEFAULTS = {k: getattr(defaults(), k) for k in (
 
 def train_options(opt) -> Dict:
     """The train keys of ``opt`` (a dict or a parsed namespace), with
-    defaults.  Raises ``NotImplementedError`` for what the port does not
-    train yet: several processes (``multihost``)."""
+    defaults."""
     o = as_dict(opt)
-    out = {k: o.get(k, v) for k, v in TRAIN_DEFAULTS.items()}
-    if o.get("multihost"):
-        raise NotImplementedError("--multihost: multi-process training (DDP) is not ported")
-    return out
+    return {k: o.get(k, v) for k, v in TRAIN_DEFAULTS.items()}

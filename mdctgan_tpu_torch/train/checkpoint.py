@@ -15,6 +15,11 @@ orbax step directories instead, never ``step_*.pt`` files, which is how
 Saves are asynchronous: ``save`` copies the state to the host (the live
 tensors move on at the next step) and a thread writes it; the next save,
 every read and ``close`` wait for that write first.
+
+Under data parallelism every rank holds the same state and restores from
+the same directory, and only rank 0's manager (``writer``) writes: the
+saves and ``epoch_index.json``, as the JAX package's process 0 writes its
+index.
 """
 
 from __future__ import annotations
@@ -109,8 +114,9 @@ def state_digest(state: Union[GANTrainState, Mapping]) -> Dict[str, str]:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 5):
+    def __init__(self, directory: str, max_to_keep: int = 5, writer: bool = True):
         self.directory = os.path.abspath(directory)
+        self.writer = writer
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self._index_path = os.path.join(self.directory, "epoch_index.json")
@@ -159,7 +165,10 @@ class CheckpointManager:
         ``epoch_label`` marks the save as that epoch's end (``--which_epoch``
         finds it, and pruning keeps it).  A step that is not newer than the
         latest save is not written again, as orbax does not: the save
-        already there stands, and the epoch label points at it."""
+        already there stands, and the epoch label points at it.  A manager
+        that is not the ``writer`` writes nothing."""
+        if not self.writer:
+            return
         self.wait()
         step = int(state.step)
         latest = self.latest_step()

@@ -68,12 +68,13 @@ def load_nets(opt: Mapping, g_state: Mapping, d_state: Mapping,
 
 def sgd_step(opt: Mapping, nets: Mapping[str, torch.nn.Module], transform,
              batch: Mapping[str, np.ndarray], device, allow_tf32: bool = False,
-             sample_mask: Optional[torch.Tensor] = None
+             sample_mask: Optional[torch.Tensor] = None, ranks=None
              ) -> Tuple[Dict[str, float], Grads]:
     """One SGD(lr=1) step of ``build_train_step`` on ``nets`` (moved to
     ``device``; the inputs take the dtype of G's first parameter): its
     losses, and its gradients (the updates) as float64 CPU tensors by
-    network and name."""
+    network and name.  With ``ranks`` (``parallel.mesh.Ranks``), one rank's
+    part of a data-parallel step on its rows ``batch``."""
     from mdctgan_tpu_torch.options import train_options
     from mdctgan_tpu_torch.train.schedule import OptimizerSpec
     from mdctgan_tpu_torch.train.state import create_train_state
@@ -82,11 +83,11 @@ def sgd_step(opt: Mapping, nets: Mapping[str, torch.nn.Module], transform,
     tro = train_options(opt)
     dtype = next(nets["G"].parameters()).dtype
     sgd = OptimizerSpec(functools.partial(torch.optim.SGD, lr=1.0))
-    state = create_train_state(nets["G"], nets["D"], sgd, sgd, device=device)
+    state = create_train_state(nets["G"], nets["D"], sgd, sgd, device=device, ranks=ranks)
     step = build_train_step(
         transform, sgd, sgd, use_lsgan=not tro["no_lsgan"], lambda_feat=tro["lambda_feat"],
         n_layers_d=tro["n_layers_D"], num_d=tro["num_D"],
-        use_ganfeat=not tro["no_ganFeat_loss"], allow_tf32=allow_tf32)
+        use_ganfeat=not tro["no_ganFeat_loss"], allow_tf32=allow_tf32, ranks=ranks)
     before = {n: {k: p.detach().clone() for k, p in m.named_parameters()}
               for n, m in nets.items()}
     state, metrics = step(state, {k: torch.from_numpy(v).to(device, dtype)
@@ -121,20 +122,20 @@ class SharedSpectra:
     def __getattr__(self, attr):
         return getattr(self.transform, attr)
 
-    def _from_source(self, forward, audio, generator):
+    def _from_source(self, forward, audio, generator, rows):
         src, dst = self.source, self.transform
-        spec, pha, params = forward(audio.to(src.device, src.dtype), generator)
+        spec, pha, params = forward(audio.to(src.device, src.dtype), generator, rows)
 
         def move(t):
             return t.to(dst.device, dst.dtype) if isinstance(t, torch.Tensor) else t
 
         return move(spec), move(pha), {k: move(v) for k, v in params.items()}
 
-    def lr_forward(self, lr_audio, generator=None):
-        return self._from_source(self.source.lr_forward, lr_audio, generator)
+    def lr_forward(self, lr_audio, generator=None, rows=None):
+        return self._from_source(self.source.lr_forward, lr_audio, generator, rows)
 
-    def hr_forward(self, hr_audio, generator=None):
-        return self._from_source(self.source.hr_forward, hr_audio, generator)
+    def hr_forward(self, hr_audio, generator=None, rows=None):
+        return self._from_source(self.source.hr_forward, hr_audio, generator, rows)
 
 
 def normwise(ref: Mapping[str, torch.Tensor], got: Mapping[str, torch.Tensor],

@@ -7,6 +7,10 @@ learning-rate schedule.  ``g_window_start`` is the step at which G's
 current accumulation window began: 0, or the ``niter_fix_global`` unfreeze,
 where the JAX package gives G a fresh ``optax.MultiSteps`` state while D's
 runs on.
+
+Under data parallelism every rank holds the whole state, the same bits on
+every rank: ``replicate_state`` broadcasts rank 0's after the state is
+built and after a restore, and the step keeps it so.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import torch
 import torch.nn as nn
 
 from mdctgan_tpu_torch.device import resolve_device
+from mdctgan_tpu_torch.models.attention import sync_batch_stats
+from mdctgan_tpu_torch.parallel import mesh
 from mdctgan_tpu_torch.train.schedule import OptimizerSpec
 from mdctgan_tpu_torch.weights import init_weights
 
@@ -56,22 +62,46 @@ def create_train_state(
     d_tx: OptimizerSpec,
     device="cuda",
     rng: Optional[torch.Generator] = None,
+    ranks: Optional[mesh.Ranks] = None,
 ) -> GANTrainState:
     """Both modules on ``device`` in train mode, with their optimizers and
     step 0.  With ``rng`` the weights get the reference initialisation drawn
     from it (``weights.init_weights``, G then D); without, they stay as
     given (a ``load_state_dict`` before this call).  Raises when ``device``
-    is CUDA and CUDA is absent."""
+    is CUDA and CUDA is absent.  With ``ranks`` G's BatchNorm takes the
+    global batch's statistics (``attention.sync_batch_stats``) and the
+    state is rank 0's on every rank (``replicate_state``)."""
     dev = resolve_device(device)
     if rng is not None:
         init_weights(generator, rng)
         init_weights(discriminator, rng)
     generator.to(dev).train()
     discriminator.to(dev).train()
-    return GANTrainState(
+    state = GANTrainState(
         step=0,
         generator=generator,
         discriminator=discriminator,
         g_opt=g_tx.init(generator.named_parameters()),
         d_opt=d_tx.init(discriminator.named_parameters()),
     )
+    if ranks is not None:
+        sync_batch_stats(generator)
+        replicate_state(state, ranks)
+    return state
+
+
+def replicate_state(state: GANTrainState, ranks: mesh.Ranks) -> GANTrainState:
+    """Rank 0's state on every rank, in place: both modules' parameters and
+    buffers, both optimizers' state and the gradients of an update being
+    accumulated.  Every rank must hold the same structure: the same
+    modules, optimizers and accumulated parameters, as a state built from
+    the same options and restored from the same save does."""
+    tensors = [t for module in (state.generator, state.discriminator)
+               for t in module.state_dict().values()]
+    for opt in (state.g_opt, state.d_opt):
+        tensors += [v for per in opt.state.values() for v in per.values()
+                    if isinstance(v, torch.Tensor)]
+    tensors += [p.grad for module in (state.generator, state.discriminator)
+                for p in module.parameters() if p.grad is not None]
+    mesh.replicate(tensors, ranks)
+    return state

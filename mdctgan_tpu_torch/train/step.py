@@ -10,6 +10,13 @@ where sg detaches and D_sg is D called with detached *parameters*, so the
 gradient of loss_G reaches G through D's activations and never D.  One
 ``torch.autograd.grad`` of loss_G + loss_D gives both gradient sets, as the
 JAX step's one ``jax.grad`` does, and the two optimizers step.
+
+Under data parallelism (``ranks``; ``parallel/mesh.py``) each rank steps on
+its rows of the global batch with the same state: the attention stack's
+BatchNorm takes the global statistics (``create_train_state`` marks it),
+each loss is this rank's share of the global loss (``models/losses.py``),
+the gradients are summed over the ranks before either optimizer reads them,
+and the reported metrics are the sums of the shares: the global losses.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch.nn as nn
 from mdctgan_tpu_torch.device import float32_policy
 from mdctgan_tpu_torch.models.losses import feature_matching_loss, gan_loss
 from mdctgan_tpu_torch.ops.features import SpectralTransform
+from mdctgan_tpu_torch.parallel import mesh
 from mdctgan_tpu_torch.train.schedule import OptimizerSpec
 from mdctgan_tpu_torch.train.state import GANTrainState
 
@@ -58,6 +66,7 @@ def build_train_step(
     use_pool: bool = False,
     allow_tf32: bool = False,
     noise: Optional[torch.Generator] = None,
+    ranks: Optional[mesh.Ranks] = None,
 ) -> Callable[..., Tuple[GANTrainState, Dict[str, torch.Tensor]]]:
     """``train_step(state, batch, pool_old=None, pool_mask=None,
     sample_mask=None, mark=None) -> (state, metrics)``.
@@ -89,7 +98,13 @@ def build_train_step(
     ``mark(name)``, when given, is called after each part of the step
     ("k1", "g_forward", "d_forward", "backward", "optimizer") for timing.
     The step runs under ``float32_policy(allow_tf32)``: TF32 off unless a
-    caller asks for it to read what it costs."""
+    caller asks for it to read what it costs.
+
+    With ``ranks`` the step is one rank's part of a data-parallel step (the
+    module docstring): ``batch``, ``sample_mask`` and the pool's inputs
+    hold this rank's rows, the noise fills are drawn at the global shape,
+    and ``fake_concat`` holds this rank's fakes.  Every rank must call it
+    with the same state and the same number of rows."""
 
     if g_tx.accum_steps != d_tx.accum_steps:
         raise ValueError("G and D must accumulate over the same number of micro-batches")
@@ -109,9 +124,18 @@ def build_train_step(
 
     def step_body(state, batch, pool_old, pool_mask, sample_mask, mark):
         gen, disc = state.generator, state.discriminator
+        bsz = batch["lr_audio"].shape[0]
+        rows = total = None
+        if ranks is not None:
+            rows = ranks.global_rows(bsz)
+            # the global batch's weight, the losses' common denominator
+            total = (sample_mask.sum().reshape(1) if sample_mask is not None
+                     else torch.full((1,), float(bsz), device=batch["lr_audio"].device))
+            mesh.all_reduce_([total], ranks)
+            total = torch.clamp(total[0], min=1.0)
         with torch.no_grad():
-            lr_spec, _, _ = transform.lr_forward(batch["lr_audio"], noise)
-            hr_spec, _, _ = transform.hr_forward(batch["hr_audio"], noise)
+            lr_spec, _, _ = transform.lr_forward(batch["lr_audio"], noise, rows)
+            hr_spec, _, _ = transform.hr_forward(batch["hr_audio"], noise, rows)
         mark("k1")
 
         gen.train()
@@ -129,23 +153,25 @@ def build_train_step(
         # D_fake and D_real share the live parameters: one 2B call, split
         # back per scale and layer, fake rows first
         both = disc(torch.cat((d_fake_in, d_concat(lr_spec, hr_spec)), dim=0))
-        bsz = lr_spec.shape[0]
         pred_fake_d = [[f[:bsz] for f in scale] for scale in both]
         pred_real = [[f[bsz:] for f in scale] for scale in both]
 
-        loss_g_gan = gan_loss(pred_fake_g, True, use_lsgan, sample_weight=sample_mask)
+        weights = dict(sample_weight=sample_mask, total_weight=total)
+        loss_g_gan = gan_loss(pred_fake_g, True, use_lsgan, **weights)
         loss_g_feat = (
             feature_matching_loss(pred_fake_g, pred_real, n_layers_d, num_d,
-                                  lambda_feat, sample_weight=sample_mask)
+                                  lambda_feat, **weights)
             if use_ganfeat else torch.zeros((), device=lr_spec.device))
-        loss_d_fake = gan_loss(pred_fake_d, False, use_lsgan, sample_weight=sample_mask)
-        loss_d_real = gan_loss(pred_real, True, use_lsgan, sample_weight=sample_mask)
+        loss_d_fake = gan_loss(pred_fake_d, False, use_lsgan, **weights)
+        loss_d_real = gan_loss(pred_real, True, use_lsgan, **weights)
         loss_g = loss_g_gan + loss_g_feat
         loss_d = 0.5 * (loss_d_fake + loss_d_real)
         mark("d_forward")
 
         g_params, d_params = _params(state.g_opt), _params(state.d_opt)
         grads = torch.autograd.grad(loss_g + loss_d, g_params + d_params)
+        if ranks is not None:
+            mesh.all_reduce_(grads, ranks)
         mark("backward")
 
         for net, params, net_grads, tx, optimizer in (
@@ -166,6 +192,10 @@ def build_train_step(
             "loss_G": loss_g, "loss_D": loss_d,
         }
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if ranks is not None:
+            shares = torch.stack([v.to(loss_d.dtype) for v in metrics.values()])
+            mesh.all_reduce_([shares], ranks)
+            metrics = dict(zip(metrics, shares.unbind()))
         if use_pool:
             metrics["fake_concat"] = fake_concat
         return state, metrics
@@ -178,7 +208,7 @@ def build_inference_fn(
     transform: SpectralTransform,
     out_length: Optional[int] = None,
 ) -> Callable:
-    """``infer(lr_audio, phase=None)``: LR waveform segments (B, T) -> (SR
+    """``infer(lr_audio, phase=None, rows=None)``: LR waveform segments (B, T) -> (SR
     spectro (B, C, F, K), SR waveform (B, out_length)).
 
     The LR spectrum (``lr_forward``: one K1 launch where the transform is
@@ -188,12 +218,14 @@ def build_inference_fn(
     *LR* normalization bounds and synthesized (one K2 launch where
     ``fused``) with the LR sign.  ``phase``, a CPU ``torch.Generator``,
     draws the dB mode's pseudo-phase above the LR rows (ones without
-    one)."""
+    one); ``rows`` draws it at a global batch's shape (``ops/features.py``),
+    for one replica's share of a batch."""
     cfg = transform.cfg
 
     @torch.inference_mode()
     @float32_policy()
-    def infer(lr_audio: torch.Tensor, phase: Optional[torch.Generator] = None):
+    def infer(lr_audio: torch.Tensor, phase: Optional[torch.Generator] = None,
+              rows: Optional[Tuple[int, int]] = None):
         lr_spec, lr_pha, lr_np = transform.lr_forward(lr_audio)
         sr = generator(transform.g_input(lr_spec))
         if cfg.fit_residual:
@@ -201,7 +233,7 @@ def build_inference_fn(
             sr[..., :lr_part] *= 1e-3
             sr = sr + lr_spec
         sr_audio = transform.to_audio(sr, lr_np, lr_pha, generator=phase,
-                                      out_length=out_length)
+                                      out_length=out_length, rows=rows)
         return sr, sr_audio
 
     return infer

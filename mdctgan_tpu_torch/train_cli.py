@@ -20,9 +20,21 @@ The model trains on ``cuda:<gpu_ids>`` (default 0; raises without CUDA),
 with TF32 off for the whole run (``device.float32_policy``); ``--gpu_ids
 -1`` asks for the CPU.  ``--fp16`` is the JAX package's bf16 policy: G and
 D compute in bf16 on float32 parameters, with no loss scaling, and the
-spectra, the losses and the optimizers stay float32.  Several ids and
-``--multihost`` raise ``NotImplementedError``.  The TPU-form flags of the
-JAX package are parsed and ignored (``options.py``).
+spectra, the losses and the optimizers stay float32.  The TPU-form flags of
+the JAX package are parsed and ignored (``options.py``).
+
+Data parallelism (``parallel/mesh.py``), with the JAX package's global-batch
+semantics: a global batch split over ranks steps as the same batch on one
+rank.  ``--gpu_ids a,b,..`` starts one rank a listed card of this host, and
+``--batchSize`` is the global batch, split over them; ``--multihost`` joins
+the group that torchrun started (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT`` or
+``--coordinator_address``), on ``cuda:<LOCAL_RANK>``, and ``--batchSize``
+is each host's batch, split over the host's ranks.  Every rank holds the
+whole state and reads its host's batch from the same seeded stream; rank 0
+alone writes ``opt.txt``, the logs, the visuals, the checkpoints and
+``eval.csv``, evaluates and displays, and ranks agree on a signal each
+step, so all stop at the same step.
 """
 
 from __future__ import annotations
@@ -45,12 +57,13 @@ from mdctgan_tpu_torch.ops.features import SpectralTransform
 from mdctgan_tpu_torch.ops.metrics import compute_metrics, nanmean_rows
 from mdctgan_tpu_torch.ops.resample import degrade_lr, fix_length, resample
 from mdctgan_tpu_torch.options import (
-    TrainOptions, serving_device, spectral_config_from_opt, train_options)
+    TrainOptions, serving_devices, spectral_config_from_opt, write_options)
+from mdctgan_tpu_torch.parallel import mesh
 from mdctgan_tpu_torch.train import import_torch
 from mdctgan_tpu_torch.train.checkpoint import CheckpointManager, state_digest
 from mdctgan_tpu_torch.train.freeze import masked_optimizer, param_labels
 from mdctgan_tpu_torch.train.schedule import FreqClock, carry_schedule_count, make_optimizers
-from mdctgan_tpu_torch.train.state import create_train_state
+from mdctgan_tpu_torch.train.state import create_train_state, replicate_state
 from mdctgan_tpu_torch.train.step import build_inference_fn, build_train_step
 from mdctgan_tpu_torch.utils import profiling
 from mdctgan_tpu_torch.utils.pool import ImagePool
@@ -66,27 +79,60 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     after a ``--continue_train`` restore, else None), ``setup_ms``
     (options to the first step), ``steps`` (per step: its epoch, ``ms``
     from the start of its ``next(pipeline)`` to the end of its triggers,
-    ``next_ms`` blocked in ``next``, and the triggers that ``fired``),
-    ``losses`` (each printed step's losses), ``lrs`` (each epoch's
-    learning rate at its last update), ``evals`` (each eval's ms and
+    ``next_ms`` blocked in ``next``, ``agree_ms`` spent agreeing on a
+    signal across ranks (0 without ranks), and the triggers that
+    ``fired``), ``losses`` (each printed step's losses), ``lrs`` (each
+    epoch's learning rate at its last update), ``evals`` (each eval's ms and
     batches), ``saves`` (each save's blocking ms) and ``writes`` (each
     landed save's bytes, snapshot ms and background write ms),
     ``profile`` (``utils.profiling.report`` of the ``--profile_dir``
     window, or None) and ``launches`` (each kernel's launches in the
-    run)."""
+    run).  Under ``--multihost``, this rank's.  With several ``--gpu_ids``,
+    rank 0's, with ``state`` replaced by its ``digest``, the launches summed
+    over the ranks, and ``ranks``: each rank's, the same way."""
     t_start = time.perf_counter()
-    launches_before = dict(mdct_kernels.LAUNCHES)
-    opt = TrainOptions().parse(argv)
-    train_options(opt)  # raises for --multihost
-    if len(opt.gpu_ids) > 1:
-        raise NotImplementedError(f"--gpu_ids {opt.gpu_ids}: data-parallel training (DDP) "
-                                  "is not ported")
-    dev = serving_device(opt)
+    opt = TrainOptions().parse(argv, save=False)
     if opt.debug:
         opt.display_freq = opt.print_freq = 1
         opt.niter = 1
         opt.niter_decay = 0
         opt.max_dataset_size = 10
+    devices = serving_devices(opt)
+    if opt.multihost:  # on cuda:<LOCAL_RANK>, or the CPU with --gpu_ids -1
+        ranks = mesh.init_multihost(devices[0].type, opt.coordinator_address or None)
+        print(f"multihost: rank {ranks.rank}/{ranks.world} on {ranks.device}", flush=True)
+        try:
+            if ranks.is_main:
+                write_options(opt)
+            return _run(opt, ranks.device, ranks, t_start)
+        finally:
+            torch.distributed.destroy_process_group()
+    cards = [d for d in devices if d.type == "cuda"]
+    if len(set(cards)) < len(cards):  # NCCL refuses two ranks on one card
+        raise ValueError(f"--gpu_ids {opt.gpu_ids}: every rank needs a card of its own")
+    write_options(opt)
+    if len(devices) == 1:
+        return _run(opt, devices[0], None, t_start)
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()  # the ranks' memory comes from the same cards
+    results = mesh.spawn(_spawned_rank, devices, args=(opt, t_start))
+    return {**results[0], "ranks": results,
+            "launches": {k: sum(r["launches"][k] for r in results)
+                         for k in mdct_kernels.LAUNCHES}}
+
+
+def _spawned_rank(ranks: mesh.Ranks, opt, t_start: float) -> Dict:
+    """One rank of ``--gpu_ids a,b,..`` (``mesh.spawn``): its result, with
+    the state's ``digest`` in place of the state."""
+    result = _run(opt, ranks.device, ranks, t_start)
+    result["digest"] = state_digest(result.pop("state"))
+    return result
+
+
+def _run(opt, dev: torch.device, ranks: Optional[mesh.Ranks], t_start: float) -> Dict:
+    """The run on this process's device, under its own float32 policy and
+    signal handlers."""
+    launches_before = dict(mdct_kernels.LAUNCHES)
 
     # SIGINT as in the reference, and SIGTERM, what a scheduler sends at
     # preemption: finish the step, save, return
@@ -100,7 +146,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     previous = {s: signal.signal(s, on_signal) for s in (signal.SIGINT, signal.SIGTERM)}
     try:
         with float32_policy():
-            result = _train(opt, dev, interrupted, t_start)
+            result = _train(opt, dev, ranks, interrupted, t_start)
     finally:
         for s, handler in previous.items():
             signal.signal(s, handler)
@@ -108,9 +154,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     return result
 
 
-def _train(opt, dev: torch.device, interrupted: Dict, t_start: float) -> Dict:
+def _train(opt, dev: torch.device, ranks: Optional[mesh.Ranks], interrupted: Dict,
+           t_start: float) -> Dict:
     cfg = spectral_config_from_opt(opt)
+    # bs, the host's batch, sets the epoch and the trigger clock; each rank
+    # steps on its share of it
     seg, bs = cfg.segment_length, opt.batchSize
+    if ranks is not None:
+        ranks.host_rows(bs)  # raises where the host's ranks do not divide it
+    is_main = ranks is None or ranks.is_main
     expr_dir = os.path.join(opt.checkpoints_dir, opt.name)
 
     # ------------------------------------------------------------------ data
@@ -150,7 +202,7 @@ def _train(opt, dev: torch.device, interrupted: Dict, t_start: float) -> Dict:
             freeze_l_d=opt.freeze_l_d, freeze_l_u=opt.freeze_l_u, fix_global=fix_global))
 
     fix_global = opt.niter_fix_global > 0
-    mgr = CheckpointManager(os.path.join(expr_dir, "ckpt"))
+    mgr = CheckpointManager(os.path.join(expr_dir, "ckpt"), writer=is_main)
     if opt.continue_train and fix_global:
         # a save from after the unfreeze holds the unmasked G optimizer:
         # read its cursor first and build that one
@@ -158,7 +210,8 @@ def _train(opt, dev: torch.device, interrupted: Dict, t_start: float) -> Dict:
         if cursor is not None and cursor[0] > opt.niter_fix_global:
             fix_global = False
     state = create_train_state(generator, discriminator, g_optimizer(fix_global), d_tx,
-                               device=dev, rng=torch.Generator().manual_seed(opt.seed))
+                               device=dev, rng=torch.Generator().manual_seed(opt.seed),
+                               ranks=ranks)
     print(f"Total number of parameters of G: {state.params_count()}")
 
     start_epoch, epoch_iter, restored_digest = 1, 0, None
@@ -184,6 +237,8 @@ def _train(opt, dev: torch.device, interrupted: Dict, t_start: float) -> Dict:
                 opt.n_layers_D, param_key_map=key_map)
             state.discriminator.load_state_dict(sd, strict=True)
             print(f"imported pretrained D from {d_path}")
+    if ranks is not None and (opt.continue_train or opt.load_pretrain):
+        replicate_state(state, ranks)
 
     pool = ImagePool(opt.pool_size, seed=opt.seed)
     # the masks' noise fills (a masked run without --fit_residual) draw from
@@ -191,10 +246,10 @@ def _train(opt, dev: torch.device, interrupted: Dict, t_start: float) -> Dict:
     step_kw = dict(use_lsgan=not opt.no_lsgan, lambda_feat=opt.lambda_feat,
                    n_layers_d=opt.n_layers_D, num_d=opt.num_D,
                    use_ganfeat=not opt.no_ganFeat_loss, use_pool=pool.enabled,
-                   noise=torch.Generator().manual_seed(opt.seed))
+                   noise=torch.Generator().manual_seed(opt.seed), ranks=ranks)
     step_fn = build_train_step(transform, g_optimizer(fix_global), d_tx, **step_kw)
     infer_fn = build_inference_fn(state.generator, transform, out_length=seg)
-    visualizer = Visualizer(opt)
+    visualizer = Visualizer(opt, is_main=is_main)
     eval_csv = os.path.join(expr_dir, "eval.csv")
     out = {"state": state, "out_dir": expr_dir,
            "start": {"epoch": start_epoch, "epoch_iter": epoch_iter},
@@ -207,11 +262,14 @@ def _train(opt, dev: torch.device, interrupted: Dict, t_start: float) -> Dict:
         # background, and the next save, read or close waits for it
         t0 = time.perf_counter()
         mgr.save(state, epoch, it, epoch_label=epoch_label, accum_steps=opt.accum_steps)
+        if ranks is not None:  # no rank runs ahead of rank 0's snapshot
+            mesh.barrier(ranks)
         out["saves"].append({"epoch": epoch, "epoch_iter": it, "epoch_label": epoch_label,
                              "blocking_ms": (time.perf_counter() - t0) * 1e3})
 
     def run_eval(step: int, epoch: int) -> None:
-        if eval_ds is None:
+        # rank 0 alone, on its copy of the weights: no collective on this path
+        if eval_ds is None or not is_main:
             return
         t0 = time.perf_counter()
         if opt.deterministic_eval:
@@ -268,10 +326,13 @@ def _train(opt, dev: torch.device, interrupted: Dict, t_start: float) -> Dict:
         out["evals"].append({"step": step, "batches": len(rows),
                              "ms": (time.perf_counter() - t0) * 1e3})
 
+    # the host batch's tail mask, and this rank's rows of it
+    host_tail = np.arange(bs) < last_batch_real
     mask_full = mask_tail = None
     if last_batch_real < bs:
-        mask_full = torch.ones(bs, device=dev)
-        mask_tail = (torch.arange(bs, device=dev) < last_batch_real).float()
+        mask_full = mesh.put_global_batch({"m": torch.ones(bs, device=dev)}, ranks)["m"]
+        mask_tail = mesh.put_global_batch(
+            {"m": torch.from_numpy(host_tail.astype(np.float32)).to(dev)}, ranks)["m"]
 
     # the trigger clock counts samples, phased by a resumed run's offset
     start_samples = (start_epoch - 1) * dataset_size + epoch_iter
@@ -281,7 +342,7 @@ def _train(opt, dev: torch.device, interrupted: Dict, t_start: float) -> Dict:
     opt_steps = state.step
     prof, prof_t0 = None, 0.0
     pipeline = InputPipeline(train_ds, cfg, bs, add_noise=opt.add_noise, snr=opt.snr,
-                             seed=opt.seed, device=dev, n_threads=opt.nThreads)
+                             seed=opt.seed, device=dev, n_threads=opt.nThreads, ranks=ranks)
     out["setup_ms"] = (time.perf_counter() - t_start) * 1e3
 
     def sync():
@@ -297,6 +358,7 @@ def _train(opt, dev: torch.device, interrupted: Dict, t_start: float) -> Dict:
         out["profile"] = profiling.report(prof, opt.profile_nsteps, wall_ms)
         print(f"profiler trace written to {opt.profile_dir}")
 
+    completed = False
     try:
         for epoch in range(start_epoch, opt.niter + opt.niter_decay + 1):
             epoch_start = time.time()
@@ -309,14 +371,25 @@ def _train(opt, dev: torch.device, interrupted: Dict, t_start: float) -> Dict:
                 is_tail = it == steps_per_epoch - 1 and mask_tail is not None
                 sample_mask = mask_tail if is_tail else mask_full
                 if pool.enabled:
-                    shape = (bs, opt.input_nc + opt.output_nc, cfg.n_bins, cfg.n_fft // 2)
+                    # the global batch's decisions, the same on every rank
+                    # (one seed); each rank mixes its rows, and every rank
+                    # commits every rank's fakes
+                    hosts = 1 if ranks is None else ranks.hosts
+                    shape = (bs * hosts, opt.input_nc + opt.output_nc, cfg.n_bins,
+                             cfg.n_fft // 2)
                     old, mask = pool.presample(shape)
+                    if ranks is not None:
+                        b = batch["lr_audio"].shape[0]
+                        first, _ = ranks.global_rows(b)
+                        old, mask = old[first:first + b], mask[first:first + b]
                     state, metrics = step_fn(state, batch, torch.from_numpy(old).to(dev),
                                              torch.from_numpy(mask).to(dev), sample_mask)
-                    fakes = metrics.pop("fake_concat").cpu().numpy()
-                    if is_tail:  # the padding rows stay out of the pool
-                        fakes = fakes[:last_batch_real]
-                    pool.commit(fakes)
+                    fakes = metrics.pop("fake_concat")
+                    if ranks is not None:
+                        fakes = mesh.gather_rows(fakes, ranks)
+                    # the padding rows stay out of the pool
+                    pool.commit(fakes.cpu().numpy(),
+                                keep=np.tile(host_tail, hosts) if is_tail else None)
                 else:
                     state, metrics = step_fn(state, batch, sample_mask=sample_mask)
                 opt_steps += 1
@@ -324,8 +397,8 @@ def _train(opt, dev: torch.device, interrupted: Dict, t_start: float) -> Dict:
                 total_steps = clock.total
                 epoch_iter = (it + 1) * bs
 
-                # the profiler's window, counted in steps
-                if opt.profile_dir and opt_steps == opt.profile_step:
+                # the profiler's window, counted in steps, on rank 0
+                if opt.profile_dir and is_main and opt_steps == opt.profile_step:
                     from torch.profiler import ProfilerActivity, profile
 
                     sync()
@@ -344,7 +417,7 @@ def _train(opt, dev: torch.device, interrupted: Dict, t_start: float) -> Dict:
                                                     time.time() - iter_start)
                     visualizer.plot_current_errors(errors, total_steps)
                     out["losses"].append({"step": opt_steps, "epoch": epoch, **errors})
-                if fire["display"]:
+                if fire["display"] and is_main:
                     with torch.no_grad():
                         lr_spec, _, lr_np = transform.lr_forward(batch["lr_audio"][:1])
                         hr_spec, _, hr_np = transform.hr_forward(batch["hr_audio"][:1])
@@ -359,13 +432,22 @@ def _train(opt, dev: torch.device, interrupted: Dict, t_start: float) -> Dict:
                 # the reference evaluates only with a validation split
                 if fire["eval"]:
                     run_eval(total_steps, epoch)
+                # every rank stops at the same step: a signal to any one
+                # stops them all
+                t_agree = time.perf_counter()
+                stop = interrupted["flag"]
+                if ranks is not None:
+                    stop = mesh.any_rank(stop, ranks)
+                agree_ms = (time.perf_counter() - t_agree) * 1e3
                 out["steps"].append({"step": opt_steps, "epoch": epoch, "next_ms": next_ms,
                                      "ms": (time.perf_counter() - t0) * 1e3,
+                                     "agree_ms": agree_ms,
                                      "fired": [k for k, v in fire.items() if v]})
-                if interrupted["flag"]:
+                if stop:
                     save(epoch, epoch_iter)
                     print("exiting on signal", flush=True)
                     out["interrupted"] = True
+                    completed = True
                     return out
 
             print(f"End of epoch {epoch} / {opt.niter + opt.niter_decay} \t "
@@ -383,6 +465,7 @@ def _train(opt, dev: torch.device, interrupted: Dict, t_start: float) -> Dict:
             if epoch % opt.save_epoch_freq == 0:
                 save(epoch + 1, 0, epoch_label=epoch)
                 print(f"saved model at end of epoch {epoch}")
+        completed = True
         return out
     finally:
         if prof is not None:
@@ -390,6 +473,8 @@ def _train(opt, dev: torch.device, interrupted: Dict, t_start: float) -> Dict:
         pipeline.close()
         visualizer.close()
         mgr.close()
+        if completed and ranks is not None:  # none leaves before rank 0's last write lands
+            mesh.barrier(ranks)
 
 
 if __name__ == "__main__":

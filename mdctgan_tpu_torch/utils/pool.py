@@ -61,15 +61,19 @@ class ImagePool:
         self._pending = slots
         return old, mask
 
-    def commit(self, fakes: np.ndarray) -> None:
+    def commit(self, fakes: np.ndarray, keep: Optional[np.ndarray] = None) -> None:
         """Apply the pool changes that the last ``presample`` decided.
         ``fakes`` may hold fewer rows than were decided for: a padded tail
-        batch commits its real rows only."""
+        batch commits its real rows only; ``keep`` (bool, one per row of
+        ``fakes``) names the rows to commit where they are not the first
+        ones (a data-parallel tail, padded on every host)."""
         if not self.enabled or self._pending is None:
             return
         slots = self._pending
         self._pending = None
         for i, s in enumerate(slots[: len(fakes)]):
+            if keep is not None and not keep[i]:
+                continue
             if s == -2:
                 self.images.append(np.asarray(fakes[i]))
             elif s >= 0:

@@ -7,6 +7,9 @@ Sinks, as in the reference:
     ``torch.utils.tensorboard`` where it imports (absent otherwise, as in
     the JAX package);
   * the self-refreshing HTML gallery under ``web/`` (needs matplotlib).
+
+Under data parallelism only the main rank (``is_main``) writes the file
+sinks; every rank prints its lines to the console, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,9 +25,11 @@ from mdctgan_tpu_torch.utils.spectro_img import compute_visuals
 
 
 class Visualizer:
-    def __init__(self, opt):
-        self.tf_log = bool(getattr(opt, "tf_log", False))
-        self.use_html = bool(getattr(opt, "isTrain", True)) and not getattr(opt, "no_html", False)
+    def __init__(self, opt, is_main: bool = True):
+        self.is_main = is_main
+        self.tf_log = bool(getattr(opt, "tf_log", False)) and is_main
+        self.use_html = (bool(getattr(opt, "isTrain", True))
+                         and not getattr(opt, "no_html", False) and is_main)
         self.win_size = getattr(opt, "display_winsize", 512)
         self.abs_spectro = bool(getattr(opt, "abs_spectro", False))
         self.name = opt.name
@@ -42,8 +47,10 @@ class Visualizer:
             self.img_dir = os.path.join(self.web_dir, "images")
             os.makedirs(self.img_dir, exist_ok=True)
         self.log_name = os.path.join(self.save_dir, "loss_log.txt")
-        with open(self.log_name, "a") as f:
-            f.write(f"================ Training Loss ({time.strftime('%c')}) ================\n")
+        if is_main:
+            with open(self.log_name, "a") as f:
+                f.write(f"================ Training Loss ({time.strftime('%c')}) "
+                        "================\n")
 
     def print_current_errors(self, epoch: int, i: int, errors: Dict[str, float],
                              t: float) -> None:
@@ -54,8 +61,9 @@ class Visualizer:
             if float(v) != 0:
                 message += f"{k}: {float(v):.3f} "
         print(message)
-        with open(self.log_name, "a") as f:
-            f.write(f"{message}\n")
+        if self.is_main:
+            with open(self.log_name, "a") as f:
+                f.write(f"{message}\n")
 
     def plot_current_errors(self, errors: Dict[str, float], step: int) -> None:
         if self._writer is not None:

@@ -263,18 +263,26 @@ def test_tpu_form_flags_are_ignored(tmp_path, monkeypatch):
                  "highest"], save=False)
     assert opt.upsample_method == "dense"
     assert not [k for k in os.environ if k.startswith("MDCTGAN_")]
-    assert options.serving_device(opt) == torch.device("cpu")
+    assert options.serving_devices(opt) == [torch.device("cpu")]
 
 
 def test_serving_device_rules(monkeypatch):
-    assert options.serving_device({"gpu_ids": []}) == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="DDP"):
-        options.serving_device({"gpu_ids": [0, 1]})
+    """``-1`` is the CPU; ids name cards, and an id this host has no card
+    for raises (the JAX CLIs clamp the count silently)."""
+    assert options.serving_devices({"gpu_ids": []}) == [torch.device("cpu")]
     with pytest.raises(ValueError, match="fused_mdct"):
-        options.serving_device({"gpu_ids": [], "fused_mdct": "off"})
+        options.serving_devices({"gpu_ids": [], "fused_mdct": "off"})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert options.serving_devices({"gpu_ids": [1, 0]}) == [torch.device("cuda:1"),
+                                                            torch.device("cuda:0")]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="1 CUDA device"):
+        options.serving_devices({"gpu_ids": [0, 1]})
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        options.serving_device({"gpu_ids": [0]})
+    for ids in ([0], [0, 1]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            options.serving_devices({"gpu_ids": ids})
 
 
 def test_spectral_config_from_namespace_and_dict():
@@ -691,15 +699,16 @@ def test_generate_cli_fused_mdct_off_raises(corpus, tmp_path):
 
 
 def test_generate_cli_refuses_unported_options(corpus, tmp_path):
-    """What the port still refuses: several ``--gpu_ids`` (data-parallel
-    serving) and the pixelshuffle upsample.  ``--fused_mdct on`` for a
-    configuration K1/K2 do not serve raises ``ValueError``, as the JAX
-    package's ``use_fused=True`` does.  (Local attention and the other
-    normalizations build now: ``test_process_file_modes_match_jax``.)"""
+    """What the port still refuses: the pixelshuffle upsample.  ``--fused_mdct
+    on`` for a configuration K1/K2 do not serve raises ``ValueError``, as the
+    JAX package's ``use_fused=True`` does.  Several ``--gpu_ids`` serve over
+    replicas now, and raise here, without CUDA.  (Local attention and the
+    other normalizations build now: ``test_process_file_modes_match_jax``.)"""
     base = _cli_args(corpus, tmp_path, "x", corpus["csv"])
-    for extra in (["--gpu_ids", "0,1"], ["--upsample_type", "pixelshuffle"]):
-        with pytest.raises(NotImplementedError):
-            generate_cli.main(base + extra)
+    with pytest.raises(NotImplementedError):
+        generate_cli.main(base + ["--upsample_type", "pixelshuffle"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate_cli.main(base + ["--gpu_ids", "0,1"])
     with pytest.raises(ValueError, match="fused_mdct"):
         generate_cli.main(base + ["--raw_mdct", "--fused_mdct", "on"])
     with pytest.raises(ValueError):

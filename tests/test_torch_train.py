@@ -693,11 +693,11 @@ def test_create_train_state_without_cuda_raises(monkeypatch):
 
 
 def test_unported_train_options_raise():
-    """Only ``multihost`` is refused now: ``accum_steps`` came with the
-    train CLI and ``fp16`` (a bf16 discriminator) with the bf16 policy."""
+    """No train option is refused now: ``accum_steps`` came with the train
+    CLI, ``fp16`` (a bf16 discriminator) with the bf16 policy and
+    ``multihost`` with data parallelism."""
     assert train_options({})["num_D"] == 2
     assert train_options({"accum_steps": 2})["accum_steps"] == 2
     assert train_options({"fp16": True})["fp16"] is True
     assert build_discriminator({"fp16": True}).scale0.layer0.compute_dtype is torch.bfloat16
-    with pytest.raises(NotImplementedError):
-        train_options({"multihost": True})
+    assert train_options({"multihost": True}) == train_options({})

@@ -353,13 +353,16 @@ def test_train_cli_sigterm_saves_and_exits(corpus, tmp_path):
 
 @pytest.mark.parametrize("extra,error,match", [
     ([], RuntimeError, "CUDA"),
-    (["--gpu_ids", "0,1"], NotImplementedError, "DDP"),
-    (["--gpu_ids", "-1", "--multihost"], NotImplementedError, "multihost"),
+    (["--gpu_ids", "0,1"], RuntimeError, "CUDA"),
+    (["--gpu_ids", "-1", "--multihost"], ValueError, "RANK"),
 ])
 def test_train_cli_refuses_what_is_not_ported(corpus, tmp_path, monkeypatch, extra, error,
                                               match):
     """The default ``--gpu_ids 0`` without CUDA raises (never a silent
-    CPU), and so do several ids and ``--multihost``."""
+    CPU), and so do several ids; ``--multihost`` outside a launch that
+    names the ranks (torchrun's variables) raises."""
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = _args(corpus, tmp_path, "x")
     i = args.index("--gpu_ids")
