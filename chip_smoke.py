@@ -228,8 +228,8 @@ DB_SEGMENT = 33024
 # weights and batch (each rank draws them itself, from this seed); 12a's
 # flags: train.sh's, then 1 epoch of 2 steps on phase 10's corpus (36 train
 # files: the second step a tail of 16) and its save, nothing else firing, on
-# one decode thread (the prefetcher's order across threads is not fixed, and
-# a rank decodes on one, so the single-card run reads the same batches);
+# one decode thread (a single card's prefetcher reads its threads' streams in
+# no fixed order; on one thread it reads the batches a rank reads);
 # 12c's replicas; the bounds on 12a's second step against the single-card
 # run, 10d's on a step after a restore (the card does not repeat a backward
 # bit for bit)
@@ -1535,8 +1535,9 @@ def parallel_phase(smi: str, dev: torch.device, bare_step: dict, cli_step: dict)
             # which the card does not repeat bit for bit: held at 10d's
             # bounds, with a second single-card run's distance read as the
             # control.  (On a tail of 2 rows two single-card runs' second
-            # steps read up to 1.1e-3 apart in float32 and 7e-3 in bf16, so
-            # the tail here is 16 rows.)
+            # steps read 1.58e-3 apart in float32 and 2.52e-2 in bf16, past
+            # these bounds, by ``probes/dp_probe.py --parts tail``; so the
+            # tail here is 16 rows.)
             for precision in ("bf16", "f32"):
                 flags = DP_CLI_FLAGS + data
                 if precision == "f32":

@@ -5,8 +5,9 @@ A copy of ``mdctgan_tpu/data/native.py``: ``info``, ``read`` and
 mp3/ogg/opus/m4a where their system libraries load), with the stdlib WAV
 reader and writer where the library is not there, and ``NativePrefetcher``,
 the library's multi-threaded random-crop segment decoder that the input
-pipeline reads from.  The library is loaded, and built with ``make`` if it
-is missing, at the first call, never at import.
+pipeline reads from, and ``OrderedPrefetcher``, its streams in a fixed
+order.  The library is loaded, and built with ``make`` if it is missing,
+at the first call, never at import.
 """
 
 from __future__ import annotations
@@ -237,3 +238,39 @@ class NativePrefetcher:
             self.close()
         except Exception:
             pass
+
+
+class OrderedPrefetcher:
+    """The streams of a ``NativePrefetcher`` of ``n_threads`` threads (the
+    library seeds its thread ``i`` with ``seed + i``), each decoded by a
+    one-thread ``NativePrefetcher`` of its own and read in turn: as many
+    decode threads, in an order that ``seed`` fixes, so that processes
+    reading one corpus with one seed read the same segments."""
+
+    def __init__(self, files: List[str], segment_frames: int,
+                 n_threads: int = 2, queue_cap: int = 64, seed: int = 0):
+        n = max(1, n_threads)
+        self._parts: List[NativePrefetcher] = []
+        try:
+            for i in range(n):
+                self._parts.append(NativePrefetcher(
+                    files, segment_frames, n_threads=1,
+                    queue_cap=max(1, -(-queue_cap // n)), seed=seed + i))
+        except Exception:
+            self.close()
+            raise
+        self._turn = 0
+
+    def next(self) -> Tuple[np.ndarray, int]:
+        part = self._parts[self._turn]
+        self._turn = (self._turn + 1) % len(self._parts)
+        return part.next()
+
+    def close(self) -> None:
+        for part in self._parts:
+            part.close()
+
+    def leak(self) -> None:
+        """``NativePrefetcher.leak`` of every stream."""
+        for part in self._parts:
+            part.leak()

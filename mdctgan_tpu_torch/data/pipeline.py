@@ -20,8 +20,10 @@ Under data parallelism (``ranks``; ``parallel/mesh.py``) every rank of a
 host reads and degrades the host's whole batch, from the same seeded stream,
 and keeps its own rows: the host batch is split over the host's ranks as
 the JAX package's one process a host shards its batch over its devices.
-The C++ prefetcher's order across its threads is not fixed, so there it
-decodes on one thread, which makes the stream the same on every rank.
+The C++ prefetcher's order across its threads is not fixed, so there each
+of its ``n_threads`` streams decodes on a thread of its own and the streams
+are read in turn (``native.OrderedPrefetcher``), which makes the stream the
+same on every rank.
 Every host seeds its stream with the same ``seed``, as the JAX package's
 hosts do, so hosts given one corpus draw the same rows.  With several
 hosts, a batch at a rate other than the probed one is refused, as in the
@@ -104,10 +106,10 @@ class InputPipeline:
         self._prefetcher = None
         # the C++ prefetcher crops at random; serial mode stays in Python
         if not dataset.serial and native.load_library() is not None:
-            self._prefetcher = native.NativePrefetcher(
-                dataset.files, dataset.segment_length,
-                n_threads=n_threads if ranks is None else 1,
-                queue_cap=queue_size * batch_size, seed=seed)
+            make = native.NativePrefetcher if ranks is None else native.OrderedPrefetcher
+            self._prefetcher = make(dataset.files, dataset.segment_length,
+                                    n_threads=n_threads, queue_cap=queue_size * batch_size,
+                                    seed=seed)
         self._thread = threading.Thread(target=self._work, daemon=True)
         self._thread.start()
 

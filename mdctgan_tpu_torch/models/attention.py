@@ -6,7 +6,7 @@ of ``bottleneck_transformer_pytorch==0.1.4`` with ``downsample=False`` and
 batch statistics, optionally restricted to the real rows of a padded batch
 by ``mask``, in train mode; running statistics in eval mode.  Under data
 parallelism (``sync_batch_stats``) the batch statistics are the global
-batch's, summed across the ranks, as the JAX package's mesh step computes
+batch's, pooled across the ranks, as the JAX package's mesh step computes
 them over the whole batch.
 
 Layout, as in the reference: the qkv channel axis splits as
@@ -28,7 +28,7 @@ import torch
 import torch.nn as nn
 
 from mdctgan_tpu_torch.models.layers import conv_forward, lift
-from mdctgan_tpu_torch.parallel.mesh import sum_over_ranks
+from mdctgan_tpu_torch.parallel.mesh import gather_over_ranks
 
 
 class AbsPosEmb2D(nn.Module):
@@ -69,6 +69,23 @@ class Attention2D(nn.Module):
         return out.transpose(-1, -2).reshape(b, heads * dh, h, w)
 
 
+def _pool_over_ranks(n: torch.Tensor, s: torch.Tensor, dev: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The global batch's count, mean and squared deviations about that mean,
+    from each rank's count ``n``, sums ``s`` and squared deviations ``dev``
+    about its own mean, through one all-reduce (``gather_over_ranks``):
+    Chan, Golub and LeVeque's pairwise update, which only adds non-negative
+    terms and so keeps the two-pass form's accuracy.  At one rank it returns
+    the rank's own numbers, bit for bit."""
+    c = s.shape[0]
+    stats = gather_over_ranks(torch.cat((n.reshape(1), s, dev)))
+    ns, ss, devs = stats[:, :1], stats[:, 1:c + 1], stats[:, c + 1:]
+    n = ns.sum()
+    mean = ss.sum(dim=0) / torch.clamp(n, min=1.0)
+    means = ss / torch.clamp(ns, min=1.0)
+    return n, mean, (devs + ns * (means - mean).square()).sum(dim=0)
+
+
 class _BN2d(nn.Module):
     """BatchNorm2d (momentum 0.1, eps 1e-5) with exactly the tensors of the
     Flax ``BatchNorm`` tree: scale/bias as ``weight``/``bias`` and mean/var
@@ -84,11 +101,11 @@ class _BN2d(nn.Module):
     normalized in float32 and the output is float32.
 
     With ``across_ranks`` (``sync_batch_stats``) the statistics are those
-    of the global batch: the masked sums and count are summed over the
-    ranks first, then the squared deviations about that global mean, each
-    sum with its gradient (``parallel.mesh.sum_over_ranks``); every rank
-    gets the same statistics and running statistics.  ``SyncBatchNorm``
-    cannot mask either."""
+    of the global batch: each rank's masked count, sums and squared
+    deviations about its own mean are pooled through one all-reduce each
+    way (``_pool_over_ranks``), with their gradient; every rank gets the
+    same statistics and running statistics, and at one rank the single
+    card's.  ``SyncBatchNorm`` cannot mask either."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -105,27 +122,24 @@ class _BN2d(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             hw = x.shape[2] * x.shape[3]
-            if self.across_ranks:
-                m = (torch.ones(x.shape[0], device=x.device, dtype=x.dtype) if mask is None
-                     else mask.to(x.dtype)).reshape(-1, 1, 1, 1)
-                sums = sum_over_ranks(torch.cat(((x * m).sum(dim=(0, 2, 3)),
-                                                 m.sum().reshape(1))))
-                n = sums[-1] * hw
-                bessel = n / torch.clamp(n - 1.0, min=1.0)
-                mean = sums[:-1] / n
-                var = sum_over_ranks(
-                    ((x - mean[:, None, None]).square() * m).sum(dim=(0, 2, 3))) / n
-            elif mask is None:
+            if mask is None and not self.across_ranks:
                 n = float(x.shape[0] * hw)
                 bessel = n / max(n - 1.0, 1.0)
                 mean = x.mean(dim=(0, 2, 3))
                 var = (x - mean[:, None, None]).square().mean(dim=(0, 2, 3))
             else:
-                m = mask.to(x.dtype).reshape(-1, 1, 1, 1)
+                # the masked sums and count, then the squared deviations
+                # about their mean (a rank may keep no row: hence the clamp)
+                m = (torch.ones(x.shape[0], device=x.device, dtype=x.dtype) if mask is None
+                     else mask.to(x.dtype)).reshape(-1, 1, 1, 1)
                 n = m.sum() * hw
+                s = (x * m).sum(dim=(0, 2, 3))
+                mean = s / torch.clamp(n, min=1.0)
+                dev = ((x - mean[:, None, None]).square() * m).sum(dim=(0, 2, 3))
+                if self.across_ranks:
+                    n, mean, dev = _pool_over_ranks(n, s, dev)
                 bessel = n / torch.clamp(n - 1.0, min=1.0)
-                mean = (x * m).sum(dim=(0, 2, 3)) / n
-                var = ((x - mean[:, None, None]).square() * m).sum(dim=(0, 2, 3)) / n
+                var = dev / n
             with torch.no_grad():
                 mom = self.momentum
                 self.running_mean.copy_((1.0 - mom) * self.running_mean + mom * mean)

@@ -9,11 +9,11 @@ samples alone, so a padded tail batch gives the losses of the smaller batch.
 
 Under data parallelism (``parallel/mesh.py``) each rank holds some rows of
 the global batch, and ``total_weight`` is the global batch's weight: the
-ranks' summed sample weights, or their summed rows without weights.  Each
-function then returns this rank's share of the global loss, its rows' sum
-divided by that total, so that the shares, and their gradients, sum over the
-ranks to the global loss and its gradient.  Without it, the mean is over
-this call's rows, bit for bit as before.
+ranks' summed sample weights, or their summed rows without weights (a
+weight of 1 a row).  Each function then returns this rank's share of the
+global loss, its rows' sum divided by that total, so that the shares, and
+their gradients, sum over the ranks to the global loss and its gradient.
+Without it, the mean is over this call's rows, bit for bit as before.
 """
 
 from __future__ import annotations
@@ -29,16 +29,13 @@ Features = List[List[torch.Tensor]]
 
 def _wmean(x: torch.Tensor, w: Optional[torch.Tensor],
            total_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
-    if w is None:
-        if total_weight is None:
-            return x.mean()
-        # this rank's rows' share: at one rank the factor is exactly 1
-        return x.mean() * (x.shape[0] / total_weight.to(x.dtype))
+    if w is None and total_weight is None:
+        return x.mean()
     per = x.reshape(x.shape[0], -1).mean(dim=1)
-    w = w.to(per.dtype)
-    if total_weight is None:
-        return (per * w).sum() / torch.clamp(w.sum(), min=1.0)
-    return (per * w).sum() / total_weight.to(per.dtype)
+    w = torch.ones_like(per) if w is None else w.to(per.dtype)
+    total = (torch.clamp(w.sum(), min=1.0) if total_weight is None
+             else total_weight.to(per.dtype))
+    return (per * w).sum() / total
 
 
 def gan_loss(preds: Features, target_is_real: bool, use_lsgan: bool = True,

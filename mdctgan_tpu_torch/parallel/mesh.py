@@ -52,8 +52,10 @@ from mdctgan_tpu_torch.device import resolve_device
 # for rank 0's eval and save, which the other ranks wait for at their next
 # collective.
 TIMEOUT = datetime.timedelta(seconds=600)
-# The flat buffers of ``all_reduce_`` and ``replicate``
-BUCKET_BYTES = 32 << 20
+# The flat buffers of ``all_reduce_`` and ``replicate``: each collective
+# costs the host ~0.1 ms on a step the host bounds, so few and large (the
+# flagship's 428 MB of gradients in 2)
+BUCKET_BYTES = 256 << 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -336,10 +338,14 @@ class _SumOverRanks(torch.autograd.Function):
         return g
 
 
-def sum_over_ranks(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the ranks of the default group, with its gradient
-    (``_SumOverRanks``)."""
-    return _SumOverRanks.apply(x)
+def gather_over_ranks(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``x`` in rank order, stacked as (world, *x.shape), on
+    every rank of the default group, with its gradient: the sum over the
+    ranks (``_SumOverRanks``) of zero-padded copies, exact."""
+    pick = torch.zeros((dist.get_world_size(),) + (1,) * x.dim(), device=x.device,
+                       dtype=x.dtype)
+    pick[dist.get_rank()] = 1.0
+    return _SumOverRanks.apply(pick * x.unsqueeze(0))
 
 
 def any_rank(flag: bool, ranks: Ranks) -> bool:

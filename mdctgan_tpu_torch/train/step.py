@@ -168,10 +168,19 @@ def build_train_step(
         loss_d = 0.5 * (loss_d_fake + loss_d_real)
         mark("d_forward")
 
+        metrics = {
+            "G_GAN": loss_g_gan, "G_GAN_Feat": loss_g_feat,
+            "D_real": loss_d_real, "D_fake": loss_d_fake,
+            "loss_G": loss_g, "loss_D": loss_d,
+        }
+        metrics = {k: v.detach() for k, v in metrics.items()}
         g_params, d_params = _params(state.g_opt), _params(state.d_opt)
         grads = torch.autograd.grad(loss_g + loss_d, g_params + d_params)
         if ranks is not None:
-            mesh.all_reduce_(grads, ranks)
+            # the ranks' shares of the metrics ride in the gradients' buckets
+            shares = torch.stack([v.to(loss_d.dtype) for v in metrics.values()])
+            mesh.all_reduce_([*grads, shares], ranks)
+            metrics = dict(zip(metrics, shares.unbind()))
         mark("backward")
 
         for net, params, net_grads, tx, optimizer in (
@@ -186,16 +195,6 @@ def build_train_step(
         state.step += 1
         mark("optimizer")
 
-        metrics = {
-            "G_GAN": loss_g_gan, "G_GAN_Feat": loss_g_feat,
-            "D_real": loss_d_real, "D_fake": loss_d_fake,
-            "loss_G": loss_g, "loss_D": loss_d,
-        }
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if ranks is not None:
-            shares = torch.stack([v.to(loss_d.dtype) for v in metrics.values()])
-            mesh.all_reduce_([shares], ranks)
-            metrics = dict(zip(metrics, shares.unbind()))
         if use_pool:
             metrics["fake_concat"] = fake_concat
         return state, metrics

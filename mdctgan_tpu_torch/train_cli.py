@@ -92,11 +92,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     over the ranks, and ``ranks``: each rank's, the same way."""
     t_start = time.perf_counter()
     opt = TrainOptions().parse(argv, save=False)
-    if opt.debug:
-        opt.display_freq = opt.print_freq = 1
-        opt.niter = 1
-        opt.niter_decay = 0
-        opt.max_dataset_size = 10
+    if not opt.multihost:  # under --multihost, rank 0 alone writes it
+        write_options(opt)
     devices = serving_devices(opt)
     if opt.multihost:  # on cuda:<LOCAL_RANK>, or the CPU with --gpu_ids -1
         ranks = mesh.init_multihost(devices[0].type, opt.coordinator_address or None)
@@ -104,13 +101,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         try:
             if ranks.is_main:
                 write_options(opt)
+            _debug_overrides(opt)
             return _run(opt, ranks.device, ranks, t_start)
         finally:
             torch.distributed.destroy_process_group()
     cards = [d for d in devices if d.type == "cuda"]
     if len(set(cards)) < len(cards):  # NCCL refuses two ranks on one card
         raise ValueError(f"--gpu_ids {opt.gpu_ids}: every rank needs a card of its own")
-    write_options(opt)
+    _debug_overrides(opt)
     if len(devices) == 1:
         return _run(opt, devices[0], None, t_start)
     if torch.cuda.is_initialized():
@@ -119,6 +117,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     return {**results[0], "ranks": results,
             "launches": {k: sum(r["launches"][k] for r in results)
                          for k in mdct_kernels.LAUNCHES}}
+
+
+def _debug_overrides(opt) -> None:
+    """``--debug``: one short epoch, printing and displaying every step (after
+    ``opt.txt`` is written, which records the flags as given)."""
+    if opt.debug:
+        opt.display_freq = opt.print_freq = 1
+        opt.niter = 1
+        opt.niter_decay = 0
+        opt.max_dataset_size = 10
 
 
 def _spawned_rank(ranks: mesh.Ranks, opt, t_start: float) -> Dict:

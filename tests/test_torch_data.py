@@ -119,6 +119,33 @@ def test_native_prefetcher_rows_are_crops_of_corpus_files(tmp_path):
     pf.leak()
 
 
+def test_ordered_prefetcher_reads_the_threads_streams_in_turn(tmp_path):
+    """``OrderedPrefetcher``: the streams a prefetcher's threads are seeded
+    with (``seed + i``), each on a thread of its own and read in turn, so
+    two of them with one seed read the same segments."""
+    if tnative.load_library() is None:
+        pytest.skip("native library unavailable")
+    frames, seg, n, rows = 20000, 3000, 3, 12
+    root = _ramp_corpus(tmp_path, 3, frames)
+    files = [str(root / f"r{i}.wav") for i in range(3)]
+    ordered = [tnative.OrderedPrefetcher(files, seg, n_threads=n, queue_cap=5, seed=4)
+               for _ in range(2)]
+    streams = [tnative.NativePrefetcher(files, seg, n_threads=1, queue_cap=2, seed=4 + i)
+               for i in range(n)]
+    try:
+        want = [streams[j % n].next() for j in range(rows)]
+        for pf in ordered:
+            for j in range(rows):
+                row, rate = pf.next()
+                np.testing.assert_array_equal(row, want[j][0])
+                assert rate == want[j][1] == 48000
+        assert len({int(_ramp_code(w[0])[0]) for w in want}) > 1
+    finally:
+        for pf in ordered + streams:
+            pf.close()
+    ordered[0].leak()  # after close, a no-op
+
+
 def test_prefetcher_all_unreadable_raises_not_hangs(tmp_path):
     """A corpus where every file is undecodable surfaces as StopIteration
     from ``next()`` within bounded time (the port's copy of

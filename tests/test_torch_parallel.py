@@ -361,6 +361,26 @@ def test_input_pipeline_keeps_this_ranks_rows(tmp_path):
         p.close()
 
 
+def test_input_pipeline_ranks_read_one_stream_at_several_threads(tmp_path):
+    """With ranks the decode threads keep ``n_threads`` and the stream its
+    order: two hosts' ranks given one corpus and one seed read the same
+    batches at 3 threads."""
+    csv = _wavs(tmp_path / "c", [48000] * 5)
+    cfg = SpectralConfig(**dict(SERVE_SPECTRAL, segment_length=2048))
+    got = []
+    for r in range(2):
+        p = InputPipeline(AudioDataset(str(csv), 2048, seed=3), cfg, 4, seed=3,
+                          device="cpu", n_threads=3, ranks=_fake_ranks(r, 2, 1))
+        try:
+            assert len(p._prefetcher._parts) == 3  # --nThreads kept
+            got.append([next(p) for _ in range(3)])
+        finally:
+            p.close()
+    for a, b in zip(*got):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+
+
 def test_input_pipeline_refuses_mixed_rates_across_hosts(tmp_path):
     """With several hosts, a batch at another rate than the probed one
     raises, as in the JAX package; one host handles it."""

@@ -371,6 +371,21 @@ def test_train_cli_refuses_what_is_not_ported(corpus, tmp_path, monkeypatch, ext
         train_cli.main(args + extra)
 
 
+def test_train_cli_options_file_records_the_flags_as_given(corpus, tmp_path, monkeypatch):
+    """``opt.txt`` is written as parsing wrote it in the reference: before
+    ``--debug``'s overrides and before the device is chosen (here the
+    default ``--gpu_ids 0`` without CUDA, which then raises)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = _args(corpus, tmp_path, "dbg")
+    i = args.index("--gpu_ids")
+    del args[i: i + 2]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(args + ["--debug"])
+    lines = (tmp_path / "dbg" / "opt.txt").read_text().splitlines()
+    for line in ("debug: True", "niter_decay: 1", "print_freq: 2", "display_freq: 1000000"):
+        assert line in lines
+
+
 def test_train_cli_fp16_trains_and_resumes(corpus, tmp_path, capsys):
     """``--fp16``, as ``train.sh`` passes it: G and D compute in bf16 on
     float32 parameters, the losses are float32 and finite, and
