@@ -19,7 +19,8 @@
 // half-frames, in one coalesced pass: no atomics, no frame tensor.
 //
 // imdct_audio_dense_launch: the dense form (window_gemm.cuh) for every other
-// even N; it reads S itself.
+// even N: [x[c], x[c+1]] times [S[:, k:]; S[:, :k]] on the tensor cores in
+// 3xTF32, each spectrum value denormalised once as it is staged.
 
 #include "mdct_fft.cuh"
 #include "window_gemm.cuh"
@@ -106,16 +107,6 @@ int launch_fft(const float* spec, const float* tables, float* out, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
-// W(d, n) of [S[:, hop:]; S[:, :hop]] for S of shape (k, 2k), hop = k.
-struct OverlapAddW {
-  const float* s;
-  int k;
-  __device__ __forceinline__ float operator()(int d, int n) const {
-    const long long row = 2LL * k;
-    return d < k ? __ldg(s + d * row + k + n) : __ldg(s + (d - k) * row + n);
-  }
-};
-
 }  // namespace
 
 extern "C" int imdct_audio_launch(const float* spec, const float* tables,
@@ -135,16 +126,31 @@ extern "C" int imdct_audio_launch(const float* spec, const float* tables,
   }
 }
 
-extern "C" int imdct_audio_dense_launch(const float* spec, const float* synth,
+// The dense form: `wop` is dense_operand of [S[:, k:]; S[:, :k]] (the
+// overlap-add folded into the matrix, ops/mdct_kernels.py); output chunk c
+// of batch row b is row c of the product over the flat spectrum.
+template <int PASSES>
+int launch_dense(const float* spec, const float* wop, float* out, int batch, int n_frames,
+                 int n_fft, float gain, float scale, float shift, void* stream) {
+  if (n_fft < 2 || n_fft % 2 || n_frames < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int k = n_fft / 2;
+  return dense::window_gemm<PASSES>(spec, static_cast<long long>(n_frames) * k, n_frames - 1,
+                                    k, k, /*offset=*/0, wop, out, batch,
+                                    AffineSinh{gain, scale, shift}, Identity{},
+                                    static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int imdct_audio_dense_launch(const float* spec, const float* wop,
                                         float* out, int batch, int n_frames,
                                         int n_fft, float gain, float scale,
                                         float shift, void* stream) {
-  const int k = n_fft / 2;
-  const int rows = n_frames - 1;
-  window_gemm_kernel<<<window_gemm_grid(rows, k, batch), THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      spec, static_cast<long long>(n_frames) * k, rows, n_fft, k,
-      /*row_stride=*/k, /*offset=*/0, OverlapAddW{synth, k}, out,
-      AffineSinh{gain, scale, shift}, Identity{});
-  return static_cast<int>(cudaGetLastError());
+  return launch_dense<3>(spec, wop, out, batch, n_frames, n_fft, gain, scale, shift, stream);
+}
+
+// 1xTF32 (hi x hi only): the accuracy control of chip_smoke.py, on no path.
+extern "C" int imdct_audio_dense_tf32x1_launch(const float* spec, const float* wop,
+                                               float* out, int batch, int n_frames,
+                                               int n_fft, float gain, float scale,
+                                               float shift, void* stream) {
+  return launch_dense<1>(spec, wop, out, batch, n_frames, n_fft, gain, scale, shift, stream);
 }

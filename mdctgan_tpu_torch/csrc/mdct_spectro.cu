@@ -19,7 +19,7 @@
 // are contiguous in `out`, in one coalesced pass.
 //
 // mdct_spectro_dense_launch: the dense form (window_gemm.cuh) for every
-// other even N; it reads C itself.
+// other even N: the product with C on the tensor cores in 3xTF32.
 
 #include "mdct_fft.cuh"
 #include "window_gemm.cuh"
@@ -123,14 +123,33 @@ extern "C" int mdct_spectro_launch(const float* signal, const float* tables,
   }
 }
 
-extern "C" int mdct_spectro_dense_launch(const float* signal, const float* mat,
+// The dense form: `wop` is dense_operand(spectro_matrix(N)) of
+// ops/mdct_kernels.py (C split into its two halves of hop rows, TF32 hi/lo
+// parts in fragment order); frame f of batch row b is row f of the product.
+template <int PASSES>
+int launch_dense(const float* signal, const float* wop, float* out, int batch, long long t,
+                 int n_fft, int n_frames, float gain, float scale, float shift,
+                 void* stream) {
+  if (n_fft < 2 || n_fft % 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int hop = n_fft / 2;
+  return dense::window_gemm<PASSES>(signal, t, n_frames, hop, hop, /*offset=*/hop, wop,
+                                    out, batch, Identity{}, AsinhAffine{gain, scale, shift},
+                                    static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int mdct_spectro_dense_launch(const float* signal, const float* wop,
                                          float* out, int batch, long long t,
                                          int n_fft, int n_frames, float gain,
                                          float scale, float shift, void* stream) {
-  const int hop = n_fft / 2;
-  window_gemm_kernel<<<window_gemm_grid(n_frames, hop, batch), THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      signal, t, n_frames, n_fft, hop, /*row_stride=*/hop, /*offset=*/hop,
-      RowMajorW{mat, hop}, out, Identity{}, AsinhAffine{gain, scale, shift});
-  return static_cast<int>(cudaGetLastError());
+  return launch_dense<3>(signal, wop, out, batch, t, n_fft, n_frames, gain, scale, shift,
+                         stream);
+}
+
+// 1xTF32 (hi x hi only): the accuracy control of chip_smoke.py, on no path.
+extern "C" int mdct_spectro_dense_tf32x1_launch(const float* signal, const float* wop,
+                                                float* out, int batch, long long t,
+                                                int n_fft, int n_frames, float gain,
+                                                float scale, float shift, void* stream) {
+  return launch_dense<1>(signal, wop, out, batch, t, n_fft, n_frames, gain, scale, shift,
+                         stream);
 }

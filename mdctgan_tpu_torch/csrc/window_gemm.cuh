@@ -1,137 +1,365 @@
-// Sliding-window matrix product: the dense form of the MDCT (K1) and IMDCT
-// (K2) kernels, for the N that the FFT form (mdct_fft.cuh) does not take,
-// i.e. any even N that is not a power of two in [64, 2048].  For those N it
-// replaces mdctgan_tpu/ops/pallas_mdct.py:80 (mdct_spectro_fused) and
-// pallas_mdct.py:185 (imdct_audio_fused).
+// Sliding-window matrix product on the tensor cores: the dense form of the
+// MDCT (K1) and IMDCT (K2) kernels, for the N that the FFT form
+// (mdct_fft.cuh) does not take, i.e. any even N that is not a power of two
+// in [64, 2048].  For those N it replaces mdctgan_tpu/ops/pallas_mdct.py:80
+// (mdct_spectro_fused) and pallas_mdct.py:185 (imdct_audio_fused).
 //
-//   out[b, r, n] = epi( sum_{d < depth} pro(src[b, r*row_stride + d - offset]) * W(d, n) )
+//   out[b, r, n] = epi( sum_{d < 2 hop} pro(src[b, r*hop + d - offset]) * W(d, n) )
 //
-// Row r of the left operand is a window of the source that starts
-// row_stride samples after row r-1's.  Both transforms have this form with
-// row_stride = depth / 2:
-//   * K1 (MDCT): a frame is N consecutive samples of the centre-padded
-//     signal, hop N/2.  The padding is never materialised: a source index
-//     outside [0, src_len) reads as zero.
+// Row r of the left operand is a window of 2*hop source values that starts
+// hop after row r-1's, so the depth falls into two halves of hop values:
+// half h of row r is source chunk r + h.  Both transforms have this form:
+//   * K1 (MDCT): a frame is N = 2 hop consecutive samples of the
+//     centre-padded signal, offset = hop.  The padding is never written: a
+//     source index outside [0, src_len) reads as zero.
 //   * K2 (IMDCT + overlap-add): output chunk c is frames[c, hop:] +
-//     frames[c+1, :hop], i.e. the row [x[c], x[c+1]] (2K consecutive spectrum
-//     values) times [S[:, hop:]; S[:, :hop]].  No atomics: each output sample
-//     is one dot product that already sums its two half-frames.
+//     frames[c+1, :hop], i.e. the row [x[c], x[c+1]] times
+//     [S[:, hop:]; S[:, :hop]], offset = 0.  No atomics.
 //
-// The product is plain float32 FMAs (no TF32, no bf16): the transforms feed
-// an arcsinh of gain 1000 and a sinh whose slope reaches ~575x, so they keep
-// full float32.  Each block computes a BM x BN output tile, staging a BM x BK
-// slice of source windows and a BK x BN slice of the matrix in shared memory
-// per step; each thread accumulates a TM x TN register tile.
-//
-// Bound on an H100 SXM: the function is bound by bytes (about 8 bytes a
-// spectrum value, at 3.35 TB/s; 0.46 us at N = 480, batch 8, T = 24000),
-// but this form does the dense (N, N/2) product, N*N/2 FMAs a frame (2.8 us
-// at that shape at the 67 TFLOP/s float32 rate): far more operations than
-// an FFT needs.  It is kept only for the geometries the FFT form does not
-// cover.  It reads the overlapping windows straight from the source, so no
-// padded signal or frame tensor is written.
+// Bound on an H100 SXM: the function is bound by bytes (each input read and
+// each output written once: 0.62 us at N 512, batch 8, 128 frames), but
+// this form does the dense product, 2*hop*hop multiply-adds an output value
+// (268 MFLOP at that shape, 944 MFLOP at N 960).  So the design goes
+// through the TF32 tensor cores (495 TFLOP/s) and keeps what it moves
+// small:
+//   * A block owns BM consecutive rows of one batch row and BN = 32
+//     columns.  It stages the (BM + 1) * hop source values its rows span
+//     once, by cp.async (zero-filled outside [0, src_len)), and applies
+//     `pro` (K2's affine + sinh) once to each value in shared memory.  Chunk
+//     c lives at span[c * P], P = hop_pad + 4 = 4 (mod 8), so the eight row
+//     groups of an A fragment fall on distinct banks; the chunk's tail
+//     [hop, hop_pad) is zeroed.
+//   * W streams through a STAGES-deep cp.async ring, BK = 16 depth values of
+//     both halves a stage.  The host lays it out in fragment order
+//     (ops/mdct_kernels.py dense_operand), so that a lane reads its
+//     (b0, b1) of TF32 hi and lo parts as one conflict-free float4.
+//   * 8 warps: warps 0-3 take depth half 0, warps 4-7 half 1, each a
+//     (BM/2 or BM) x (BN/2 or BN/4) tile of m16n8k8 TF32 mma.sync; the two
+//     halves' sums meet in shared memory, and the epilogue writes each row
+//     of the tile as 32 neighbouring floats.
+//   * 3xTF32: a = a_hi + a_lo, w = w_hi + w_lo (each part rounded to TF32),
+//     acc += a_lo w_hi + a_hi w_lo + a_hi w_hi.  The tensor cores truncate
+//     where they add, so each stage (16 depth values) sums into a fresh
+//     register tile that is then added to the float32 accumulator, rounded
+//     to nearest: summed straight into the accumulator, the truncation
+//     builds up over the depth (probes/tf32_accumulation_model.py).  The
+//     arcsinh of gain 1000 (slope ~87 at 0) and the sinh (slope up to ~575)
+//     need float32 accuracy; 1xTF32 (PASSES = 1, chip_smoke.py's control
+//     only) shows what the split buys.
+//   * BM is the largest of 64, 32, 16 whose block fits in shared memory and
+//     whose grid still puts a block on every SM (the serving batch of 8 at
+//     N 512 gives 256 blocks of 32 rows; at N 960 240 blocks of 64).  W is
+//     read once per row tile and the span once per column tile, from L2.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "mdct_fft.cuh"
 
 namespace mdctgan {
+namespace dense {
 
-constexpr int BM = 32;  // output rows per block
-constexpr int BN = 64;  // output columns per block
-constexpr int BK = 16;  // depth per shared-memory stage
-constexpr int TM = 4;   // rows per thread
-constexpr int TN = 4;   // columns per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 128
+constexpr int BN = 32;                  // output columns per block
+constexpr int BK = 16;                  // depth values of each half per stage
+constexpr int KK = BK / 8;              // m16n8k8 steps per stage
+constexpr int NTILES = BN / 8;          // n8 tiles per block
+constexpr int STAGES = 3;               // depth of the W ring
+constexpr int THREADS = 256;            // 8 warps: 2 depth halves x 4
+constexpr int STAGE_FLOATS = 2 * KK * NTILES * 32 * 4;  // one ring slot
+constexpr int RED_PITCH = BN + 8;       // the halves' sums, float2 stores
 
-// W(d, n) = w[d * width + n]: a row-major (depth, width) matrix.
-struct RowMajorW {
-  const float* w;
-  int width;
-  __device__ __forceinline__ float operator()(int d, int n) const {
-    return __ldg(w + static_cast<long long>(d) * width + n);
+__host__ __device__ inline int hop_pad(int hop) { return (hop + BK - 1) / BK * BK; }
+__host__ __device__ inline int span_pitch(int hop) { return hop_pad(hop) + 4; }
+
+inline size_t smem_bytes(int bm, int hop) {
+  const int span = (bm + 1) * span_pitch(hop);
+  const int red = 2 * bm * RED_PITCH;
+  return sizeof(float) * (STAGES * STAGE_FLOATS + (span > red ? span : red));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d += a * b over one m16n8k8 tile, TF32 inputs, float32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One ring slot of W: STAGE_FLOATS contiguous floats of the operand.
+__device__ __forceinline__ void load_stage(float* dst, const float* src) {
+#pragma unroll
+  for (int i = threadIdx.x; i < STAGE_FLOATS / 4; i += THREADS)
+    cp_async16(dst + 4 * i, src + 4 * i, true);
+}
+
+// The BM + 1 source chunks of the block, chunk c from j0 + c * hop, into
+// span[c * P + e], zero outside [0, src_len).  16-byte copies where every
+// chunk and the batch row are 4-float aligned, else 4-byte ones.
+template <int BM>
+__device__ __forceinline__ void stage_span(float* span, const float* sb, long long src_len,
+                                           long long j0, int hop, int P, bool vec) {
+  if (vec) {
+    const int hv = hop / 4;
+    for (int i = threadIdx.x; i < (BM + 1) * hv; i += THREADS) {
+      const int c = i / hv, e = 4 * (i - c * hv);
+      const long long g = j0 + static_cast<long long>(c) * hop + e;
+      const bool ok = g >= 0 && g < src_len;
+      cp_async16(span + c * P + e, ok ? sb + g : sb, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < (BM + 1) * hop; i += THREADS) {
+      const int c = i / hop, e = i - c * hop;
+      const long long g = j0 + static_cast<long long>(c) * hop + e;
+      const bool ok = g >= 0 && g < src_len;
+      cp_async4(span + c * P + e, ok ? sb + g : sb, ok);
+    }
   }
-};
+}
 
-template <class Pro, class WLoad, class Epi>
-__global__ void __launch_bounds__(THREADS)
-window_gemm_kernel(const float* __restrict__ src, long long src_len,
-                   int rows, int depth, int width, int row_stride, int offset,
-                   WLoad wload, float* __restrict__ out, Pro pro, Epi epi) {
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN];
+// grid (ceil(rows / BM), ceil(width / BN), batch), THREADS threads,
+// smem_bytes(BM, hop) of dynamic shared memory.  `wop` is the operand of
+// ops/mdct_kernels.py dense_operand: for column tile j and stage s, the
+// STAGE_FLOATS floats at (j * n_stages + s) * STAGE_FLOATS, ordered
+// [half][k8 step][n8 tile][lane][w_hi(k), w_hi(k + 4), w_lo(k), w_lo(k + 4)]
+// with k = 8 * step + lane % 4 and column n8 * 8 + lane / 4.
+template <int BM, int PASSES, class Pro, class Epi>
+__global__ void __launch_bounds__(THREADS, 2)
+window_gemm_kernel(const float* __restrict__ src, long long src_len, int rows, int hop,
+                   int width, int offset, bool vec, const float* __restrict__ wop,
+                   float* __restrict__ out, Pro pro, Epi epi) {
+  static_assert(PASSES == 1 || PASSES == 3, "1xTF32 or 3xTF32");
+  constexpr int WARPS_M = BM >= 32 ? 2 : 1;
+  constexpr int WARPS_N = 4 / WARPS_M;
+  constexpr int WM = BM / WARPS_M;
+  constexpr int WN = BN / WARPS_N;
+  constexpr int MT = WM / 16;
+  constexpr int NT = WN / 8;
+  static_assert(MT >= 1 && NT >= 1 && WM % 16 == 0, "warp tile");
 
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* span = smem + STAGES * STAGE_FLOATS;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int h = warp >> 2;  // depth half
+  const int wm = (warp & 3) / WARPS_N;
+  const int wn = (warp & 3) % WARPS_N;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int hp = hop_pad(hop);
+  const int P = hp + 4;
+  const int n_stages = hp / BK;
   const int r0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  const long long j0 = static_cast<long long>(r0) * hop - offset;
   const float* sb = src + static_cast<long long>(blockIdx.z) * src_len;
+  const float* wt = wop + static_cast<long long>(blockIdx.y) * n_stages * STAGE_FLOATS;
 
-  float acc[TM][TN];
+  stage_span<BM>(span, sb, src_len, j0, hop, P, vec);
+  cp_async_commit();
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < depth; k0 += BK) {
-    // Source windows: neighbouring threads read neighbouring samples.
-#pragma unroll
-    for (int i = 0; i < (BM * BK) / THREADS; ++i) {
-      const int e = tid + i * THREADS;
-      const int d = e % BK;
-      const int r = e / BK;
-      const int gr = r0 + r;
-      const int gd = k0 + d;
-      float v = 0.f;
-      if (gr < rows && gd < depth) {
-        const long long idx =
-            static_cast<long long>(gr) * row_stride + gd - offset;
-        if (idx >= 0 && idx < src_len) v = pro(__ldg(sb + idx));
-      }
-      As[d][r] = v;
-    }
-    // Matrix slice: neighbouring threads read neighbouring columns.
-#pragma unroll
-    for (int i = 0; i < (BK * BN) / THREADS; ++i) {
-      const int e = tid + i * THREADS;
-      const int n = e % BN;
-      const int d = e / BN;
-      const int gn = n0 + n;
-      const int gd = k0 + d;
-      Bs[d][n] = (gn < width && gd < depth) ? wload(gd, gn) : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int d = 0; d < BK; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[d][ty * TM]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[d][tx * TN]);
-      const float av[TM] = {a.x, a.y, a.z, a.w};
-      const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_stages) load_stage(ring + s * STAGE_FLOATS, wt + s * STAGE_FLOATS);
+    cp_async_commit();
   }
+  cp_async_wait<STAGES - 1>();  // the span's group
+  __syncthreads();
+  if constexpr (!std::is_same<Pro, Identity>::value) {
+    for (int i = threadIdx.x; i < (BM + 1) * hop; i += THREADS) {
+      const int c = i / hop, e = i - c * hop;
+      const long long gi = j0 + static_cast<long long>(c) * hop + e;
+      if (gi >= 0 && gi < src_len) span[c * P + e] = pro(span[c * P + e]);
+    }
+  }
+  const int pad = hp - hop;
+  for (int i = threadIdx.x; i < (BM + 1) * pad; i += THREADS) {
+    const int c = i / pad;
+    span[c * P + hop + (i - c * pad)] = 0.f;
+  }
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][jn][q] = 0.f;
+
+  // this warp's A rows: local row wm * WM + i * 16 + g (+ 8), chunk + h
+  const float* arow = span + (wm * WM + g + h) * P + t;
+  const float4* slot_lane = reinterpret_cast<const float4*>(ring) + lane;
+
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = s + STAGES - 1;
+    if (next < n_stages)
+      load_stage(ring + (next % STAGES) * STAGE_FLOATS, wt + next * STAGE_FLOATS);
+    cp_async_commit();
+
+    const float4* slot = slot_lane + (s % STAGES) * (STAGE_FLOATS / 4);
+    float part[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[i][jn][q] = 0.f;
+
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      const int e = s * BK + kk * 8;
+      uint32_t ahi[MT][4], alo[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float* p = arow + i * 16 * P + e;
+        const float v[4] = {p[0], p[8 * P], p[4], p[8 * P + 4]};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          ahi[i][q] = to_tf32(v[q]);
+          if (PASSES == 3) alo[i][q] = to_tf32(v[q] - __uint_as_float(ahi[i][q]));
+        }
+      }
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn) {
+        const float4 w = slot[((h * KK + kk) * NTILES + wn * NT + jn) * 32];
+        const uint32_t bh0 = __float_as_uint(w.x), bh1 = __float_as_uint(w.y);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          if (PASSES == 3) {
+            mma_tf32(part[i][jn], alo[i], bh0, bh1);
+            mma_tf32(part[i][jn], ahi[i], __float_as_uint(w.z), __float_as_uint(w.w));
+          }
+          mma_tf32(part[i][jn], ahi[i], bh0, bh1);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][jn][q] += part[i][jn][q];
+  }
+
+  // the two halves' sums meet in shared memory (the span's place)
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = span;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn) {
+      const int m = wm * WM + i * 16 + g;
+      const int n = wn * WN + jn * 8 + 2 * t;
+      *reinterpret_cast<float2*>(red + (h * BM + m) * RED_PITCH + n) =
+          make_float2(acc[i][jn][0], acc[i][jn][1]);
+      *reinterpret_cast<float2*>(red + (h * BM + m + 8) * RED_PITCH + n) =
+          make_float2(acc[i][jn][2], acc[i][jn][3]);
+    }
+  __syncthreads();
 
   float* ob = out + static_cast<long long>(blockIdx.z) * rows * width;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gr = r0 + ty * TM + i;
-    if (gr >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx * TN + j;
-      if (gn < width) ob[static_cast<long long>(gr) * width + gn] = epi(acc[i][j]);
-    }
+  const int n0 = blockIdx.y * BN;
+  for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
+    const int m = i / BN, c = i - m * BN;
+    const int r = r0 + m, n = n0 + c;
+    if (r < rows && n < width)
+      ob[static_cast<long long>(r) * width + n] =
+          epi(red[m * RED_PITCH + c] + red[(BM + m) * RED_PITCH + c]);
   }
 }
 
-inline dim3 window_gemm_grid(int rows, int width, int batch) {
-  return dim3((rows + BM - 1) / BM, (width + BN - 1) / BN, batch);
+template <int BM, int PASSES, class Pro, class Epi>
+int launch_bm(const float* src, long long src_len, int rows, int hop, int width, int offset,
+              bool vec, const float* wop, float* out, int batch, Pro pro, Epi epi,
+              int dev, int max_smem, cudaStream_t stream) {
+  auto kernel = window_gemm_kernel<BM, PASSES, Pro, Epi>;
+  // once per device: allow the opt-in maximum of dynamic shared memory
+  static bool ready[64] = {};
+  if (dev < 64 && !ready[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev] = true;
+  }
+  const dim3 grid((rows + BM - 1) / BM, (width + BN - 1) / BN, batch);
+  kernel<<<grid, THREADS, smem_bytes(BM, hop), stream>>>(
+      src, src_len, rows, hop, width, offset, vec, wop, out, pro, epi);
+  return static_cast<int>(cudaGetLastError());
 }
 
+// The whole product for `batch` source rows of src_len values each; returns
+// a cudaError_t.  Chooses BM (see the header comment); cudaErrorInvalidValue
+// if even 16 rows of this hop do not fit in shared memory.
+template <int PASSES, class Pro, class Epi>
+int window_gemm(const float* src, long long src_len, int rows, int hop, int width,
+                int offset, const float* wop, float* out, int batch, Pro pro, Epi epi,
+                cudaStream_t stream) {
+  int dev = 0, sms = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (rows <= 0 || batch <= 0) return 0;
+  const long long cols = (width + BN - 1) / BN;
+  int bm = 0;
+  for (int cand : {64, 32, 16}) {
+    if (smem_bytes(cand, hop) > static_cast<size_t>(max_smem)) continue;
+    bm = cand;  // the smallest that fits, unless a larger one fills the card
+    if ((rows + cand - 1) / cand * cols * batch >= sms) break;
+  }
+  const bool vec = hop % 4 == 0 && src_len % 4 == 0 && offset % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(src) % 16 == 0;
+  switch (bm) {
+    case 64:
+      return launch_bm<64, PASSES>(src, src_len, rows, hop, width, offset, vec, wop, out,
+                                   batch, pro, epi, dev, max_smem, stream);
+    case 32:
+      return launch_bm<32, PASSES>(src, src_len, rows, hop, width, offset, vec, wop, out,
+                                   batch, pro, epi, dev, max_smem, stream);
+    case 16:
+      return launch_bm<16, PASSES>(src, src_len, rows, hop, width, offset, vec, wop, out,
+                                   batch, pro, epi, dev, max_smem, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace dense
 }  // namespace mdctgan

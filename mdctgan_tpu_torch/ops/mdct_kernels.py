@@ -18,14 +18,19 @@ failure:
   with the window and twiddles of ``fft_tables``;
 * the dense form (``csrc/window_gemm.cuh``; ``mdct_spectro_dense``,
   ``imdct_audio_dense``) for every other even N: the (N, N/2) product
-  against ``spectro_matrix``/``synth_matrix``.
+  against ``spectro_matrix`` (K2: ``[S[:, k:]; S[:, :k]]`` of
+  ``synth_matrix``) on the tensor cores in 3xTF32, reading the matrix as
+  ``dense_operand`` lays it out, built once per (N, device).  It takes N
+  up to about 6000 on an H100 (16 frames of the source must fit in shared
+  memory); above that its launch fails and the wrapper raises.
 
 Bound on an H100 SXM at the flagship shape (batch 8, N = 512, 128 frames):
 each kernel must move about 2.1 MB (its input, its output and the window),
 0.62 us at 3.35 TB/s.  Through the FFT an MDCT frame takes ~6.8 kFLOP,
 ~7 MFLOP a call, ~0.1 us at the 67 TFLOP/s float32 rate, so both are bound
-by bytes.  The dense product is 2*8*128*512*256 = 268 MFLOP, ~4.0 us at
-that rate: it cannot reach the bound and serves only the other N.
+by bytes.  The dense product is 2*8*128*512*256 = 268 MFLOP; in 3xTF32
+that is three TF32 products, 805 MFLOP, 1.6 us at the 495 TFLOP/s TF32
+rate: it cannot reach the bound and serves only the other N.
 
 A wrapper given a CPU tensor runs the plain PyTorch version; given a CUDA
 tensor it launches a kernel (adding one to its count in ``LAUNCHES``) or
@@ -36,7 +41,8 @@ configurations they cannot serve run the matmul form (``ops/mdct.py``
 ``MDCT``/``IMDCT``), chosen by ``ops/features.py`` from the configuration
 before any launch.
 The matrix argument gives N and is the plain version's operand; the FFT
-form reads ``fft_tables(N)`` instead, built once per device.
+form reads ``fft_tables(N)`` and the dense form ``dense_operand`` of the
+float64 matrix instead, each built once per (N, device).
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
 from mdctgan_tpu_torch.ops._build import load_library
@@ -53,6 +60,9 @@ from mdctgan_tpu_torch.ops.mdct import (  # noqa: F401
     fft_tables, imdct, mdct, n_frames, spectro_matrix, synth_matrix)
 
 _LN10 = math.log(10.0)
+# The dense form's tile, as csrc/window_gemm.cuh has it: output columns a
+# block (dense::BN) and depth values of each half a ring stage (dense::BK).
+DENSE_BN, DENSE_BK = 32, 16
 
 # Kernel launches since the last ``reset_launch_counts()``; only the wrappers
 # below add to these, and only where they launch.
@@ -106,6 +116,58 @@ def mdct_spectro_plain(signal, mat, gain=0.0, scale=1.0, shift=0.0):
 def imdct_audio_plain(spec, synth, gain=0.0, scale=1.0, shift=0.0):
     """K2 in plain PyTorch, in the dtype of ``spec`` and ``synth``."""
     return imdct(expand(spec, gain, scale, shift), synth)
+
+
+# --------------------------------------------------------------------------
+# the dense form's operand
+# --------------------------------------------------------------------------
+
+def tf32_round(x: np.ndarray) -> np.ndarray:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32``: the low 13 bits zero."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def dense_halves(kernel: str, n_fft: int) -> np.ndarray:
+    """The dense form's matrix in float64 as its two depth halves, (2, N/2,
+    N/2): K1's ``spectro_matrix`` rows ``[:N/2]`` and ``[N/2:]``; K2's
+    ``S[:, N/2:]`` and ``S[:, :N/2]`` of ``synth_matrix``, the overlap-add
+    ``frames[c, hop:] + frames[c+1, :hop]`` folded into the product."""
+    k = n_fft // 2
+    if kernel == "mdct_spectro":
+        return spectro_matrix(n_fft, dtype=torch.float64).numpy().reshape(2, k, k)
+    syn = synth_matrix(n_fft, dtype=torch.float64).numpy()
+    return np.stack([syn[:, k:], syn[:, :k]])
+
+
+def dense_operand(halves: np.ndarray) -> np.ndarray:
+    """``halves`` (2, hop, width) as the dense kernel reads it, flat float32.
+
+    The depth of each half is zero-padded to ``hop_pad``, a multiple of
+    ``DENSE_BK``, and the width to a multiple of ``DENSE_BN``; each value is
+    split into TF32 parts ``hi = tf32(w)``, ``lo = tf32(w - hi)`` (3xTF32).
+    Order: column tile j, stage s, half h, k8 step, n8 tile, lane
+    ``g * 4 + t``, then ``(hi(k), hi(k + 4), lo(k), lo(k + 4))`` with depth
+    ``k = s * DENSE_BK + step * 8 + t`` and column ``j * DENSE_BN + tile * 8
+    + g``: a lane's ``(b0, b1)`` of one m16n8k8 product, hi and lo, as one
+    float4 (``csrc/window_gemm.cuh``)."""
+    _, hop, width = halves.shape
+    hp = -(-hop // DENSE_BK) * DENSE_BK
+    wp = -(-width // DENSE_BN) * DENSE_BN
+    w = np.zeros((2, hp, wp))
+    w[:, :hop, :width] = halves
+    hi = tf32_round(w.astype(np.float32))
+    lo = tf32_round((w - hi).astype(np.float32))
+    parts = np.stack([hi, lo]).reshape(
+        2, 2, hp // DENSE_BK, DENSE_BK // 8, 2, 4, wp // DENSE_BN, DENSE_BN // 8, 8)
+    # (part, h, s, step, q, t, j, tile, g) -> (j, s, h, step, tile, g, t, part, q)
+    return np.ascontiguousarray(parts.transpose(6, 2, 1, 3, 7, 8, 5, 0, 4)).reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_operand(kernel: str, n_fft: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(dense_operand(dense_halves(kernel, n_fft))).to(device)
 
 
 # --------------------------------------------------------------------------
@@ -172,7 +234,8 @@ def _k1(name, signal, mat, gain, scale, shift):
     b, t = signal.shape
     f = n_frames(t, n_fft, n_fft // 2)
     out = torch.empty((b, f, n_fft // 2), device=signal.device, dtype=torch.float32)
-    operand = mat if name.endswith("_dense") else _device_tables(n_fft, signal.device)
+    operand = (_dense_operand("mdct_spectro", n_fft, signal.device) if name.endswith("_dense")
+               else _device_tables(n_fft, signal.device))
     return _launch(name, signal, operand, out, b, t, n_fft, f,
                    float(gain), float(scale), float(shift))
 
@@ -189,7 +252,8 @@ def _k2(name, spec, synth, gain, scale, shift):
     if f < 2:
         raise ValueError(f"{name}: needs at least 2 frames, got {f}")
     out = torch.empty((b, (f - 1) * k), device=spec.device, dtype=torch.float32)
-    operand = synth if name.endswith("_dense") else _device_tables(2 * k, spec.device)
+    operand = (_dense_operand("imdct_audio", 2 * k, spec.device) if name.endswith("_dense")
+               else _device_tables(2 * k, spec.device))
     return _launch(name, spec, operand, out, b, f, 2 * k,
                    float(gain), float(scale), float(shift))
 
@@ -208,7 +272,8 @@ def mdct_spectro(signal, mat, gain=0.0, scale=1.0, shift=0.0,
 
 
 def mdct_spectro_dense(signal, mat, gain=0.0, scale=1.0, shift=0.0):
-    """K1's dense form at any even N (the product with ``mat``)."""
+    """K1's dense form at any even N (``mat`` gives N; the kernel reads
+    ``dense_operand`` of the float64 matrix)."""
     if signal.device.type == "cpu":
         return mdct_spectro_plain(signal, mat, gain, scale, shift)
     return _k1("mdct_spectro_dense", signal, mat, gain, scale, shift)
@@ -227,7 +292,8 @@ def imdct_audio(spec, synth, gain=0.0, scale=1.0, shift=0.0,
 
 
 def imdct_audio_dense(spec, synth, gain=0.0, scale=1.0, shift=0.0):
-    """K2's dense form at any even N (the product with ``synth``)."""
+    """K2's dense form at any even N (``synth`` gives N; the kernel reads
+    ``dense_operand`` of the float64 matrix)."""
     if spec.device.type == "cpu":
         return imdct_audio_plain(spec, synth, gain, scale, shift)
     return _k2("imdct_audio_dense", spec, synth, gain, scale, shift)
