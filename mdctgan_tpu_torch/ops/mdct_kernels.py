@@ -62,7 +62,7 @@ from mdctgan_tpu_torch.ops.mdct import (  # noqa: F401
 _LN10 = math.log(10.0)
 # The dense form's tile, as csrc/window_gemm.cuh has it: output columns a
 # block (dense::BN) and depth values of each half a ring stage (dense::BK).
-DENSE_BN, DENSE_BK = 32, 16
+DENSE_BN, DENSE_BK = 32, 32
 
 # Kernel launches since the last ``reset_launch_counts()``; only the wrappers
 # below add to these, and only where they launch.
@@ -122,13 +122,6 @@ def imdct_audio_plain(spec, synth, gain=0.0, scale=1.0, shift=0.0):
 # the dense form's operand
 # --------------------------------------------------------------------------
 
-def tf32_round(x: np.ndarray) -> np.ndarray:
-    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with
-    ties away from zero, as ``cvt.rna.tf32.f32``: the low 13 bits zero."""
-    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
 def dense_halves(kernel: str, n_fft: int) -> np.ndarray:
     """The dense form's matrix in float64 as its two depth halves, (2, N/2,
     N/2): K1's ``spectro_matrix`` rows ``[:N/2]`` and ``[N/2:]``; K2's
@@ -145,24 +138,20 @@ def dense_operand(halves: np.ndarray) -> np.ndarray:
     """``halves`` (2, hop, width) as the dense kernel reads it, flat float32.
 
     The depth of each half is zero-padded to ``hop_pad``, a multiple of
-    ``DENSE_BK``, and the width to a multiple of ``DENSE_BN``; each value is
-    split into TF32 parts ``hi = tf32(w)``, ``lo = tf32(w - hi)`` (3xTF32).
-    Order: column tile j, stage s, half h, k8 step, n8 tile, lane
-    ``g * 4 + t``, then ``(hi(k), hi(k + 4), lo(k), lo(k + 4))`` with depth
-    ``k = s * DENSE_BK + step * 8 + t`` and column ``j * DENSE_BN + tile * 8
-    + g``: a lane's ``(b0, b1)`` of one m16n8k8 product, hi and lo, as one
-    float4 (``csrc/window_gemm.cuh``)."""
+    ``DENSE_BK``, and the width to a multiple of ``DENSE_BN``.  Order:
+    column tile j, stage s, half h, k8 step, n8 tile, lane ``g * 4 + t``,
+    then ``(w(k), w(k + 4))`` with depth ``k = s * DENSE_BK + step * 8 + t``
+    and column ``j * DENSE_BN + tile * 8 + g``: a lane's ``(b0, b1)`` of one
+    m16n8k8 product as one float2 (``csrc/window_gemm.cuh``, which splits
+    each value into its TF32 parts)."""
     _, hop, width = halves.shape
     hp = -(-hop // DENSE_BK) * DENSE_BK
     wp = -(-width // DENSE_BN) * DENSE_BN
-    w = np.zeros((2, hp, wp))
+    w = np.zeros((2, hp, wp), np.float32)
     w[:, :hop, :width] = halves
-    hi = tf32_round(w.astype(np.float32))
-    lo = tf32_round((w - hi).astype(np.float32))
-    parts = np.stack([hi, lo]).reshape(
-        2, 2, hp // DENSE_BK, DENSE_BK // 8, 2, 4, wp // DENSE_BN, DENSE_BN // 8, 8)
-    # (part, h, s, step, q, t, j, tile, g) -> (j, s, h, step, tile, g, t, part, q)
-    return np.ascontiguousarray(parts.transpose(6, 2, 1, 3, 7, 8, 5, 0, 4)).reshape(-1)
+    w = w.reshape(2, hp // DENSE_BK, DENSE_BK // 8, 2, 4, wp // DENSE_BN, DENSE_BN // 8, 8)
+    # (h, s, step, q, t, j, tile, g) -> (j, s, h, step, tile, g, t, q)
+    return np.ascontiguousarray(w.transpose(5, 1, 0, 2, 6, 7, 4, 3)).reshape(-1)
 
 
 @functools.lru_cache(maxsize=None)

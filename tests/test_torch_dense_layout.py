@@ -23,6 +23,13 @@ HEADER = Path(K.__file__).resolve().parent.parent / "csrc" / "window_gemm.cuh"
 GAIN = 1000.0
 
 
+def _tf32(x):
+    """float32 ``x`` rounded to TF32 as the kernel rounds it (to nearest,
+    ties away from zero; the low 13 bits zero)."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
 def _header_int(name: str) -> int:
     return int(re.search(rf"constexpr int {name} = (\d+);", HEADER.read_text()).group(1))
 
@@ -49,11 +56,10 @@ def _emulate(src, src_len, rows, hop, width, offset, wop, bm, pro, epi, passes=3
     """``window_gemm_kernel<bm, passes>`` over every block, in float64."""
     bn, bk = K.DENSE_BN, K.DENSE_BK
     kk_n, ntiles = bk // 8, bn // 8
-    stage_floats = 2 * kk_n * ntiles * 32 * 4
-    warps_m = 2 if bm >= 32 else 1
-    warps_n = 4 // warps_m
-    wm_rows, wn_cols = bm // warps_m, bn // warps_n
-    mt, nt = wm_rows // 16, wn_cols // 8
+    wf = 2
+    stage_floats = 2 * kk_n * ntiles * 32 * wf
+    warps_m = bm // 16
+    ksplit = 4 // warps_m
     hp = -(-hop // bk) * bk
     p = hp + 4
     n_stages = hp // bk
@@ -74,37 +80,34 @@ def _emulate(src, src_len, rows, hop, width, offset, wop, bm, pro, epi, passes=3
                         span[c * p + e] = pro(sb[gi])
             for y in range(-(-width // bn)):
                 wt = wop[y * n_stages * stage_floats:(y + 1) * n_stages * stage_floats]
-                red = np.zeros((2, bm, bn))
+                red = np.zeros((8, 16, bn))
                 for warp in range(8):
-                    h, wm, wn = warp >> 2, (warp & 3) // warps_n, (warp & 3) % warps_n
-                    acc = np.zeros((mt, nt, 32, 4))
+                    h, wm, ks = warp >> 2, (warp & 3) % warps_m, (warp & 3) // warps_m
+                    acc = np.zeros((ntiles, 32, 4))
                     for s in range(n_stages):
-                        slot = wt[s * stage_floats:(s + 1) * stage_floats].reshape(-1, 4)
-                        for kk in range(kk_n):
-                            e = s * bk + kk * 8
-                            for i in range(mt):
-                                base = (wm * wm_rows + i * 16 + g + h) * p + e + t
-                                a = np.stack([span[base], span[base + 8 * p], span[base + 4],
-                                              span[base + 8 * p + 4]], 1)
-                                a_hi = K.tf32_round(a.astype(np.float32)).astype(np.float64)
-                                for jn in range(nt):
-                                    w = slot[((h * kk_n + kk) * ntiles + wn * nt + jn) * 32 + lane]
-                                    if passes == 3:
-                                        acc[i, jn] += _mma(a, w[:, :2] + w[:, 2:])
-                                    else:
-                                        acc[i, jn] += _mma(a_hi, w[:, :2])
-                    for i in range(mt):
-                        for jn in range(nt):
-                            m = wm * wm_rows + i * 16 + g
-                            n = wn * wn_cols + jn * 8 + 2 * t
-                            red[h, m, n], red[h, m, n + 1] = acc[i, jn, :, 0], acc[i, jn, :, 1]
-                            red[h, m + 8, n] = acc[i, jn, :, 2]
-                            red[h, m + 8, n + 1] = acc[i, jn, :, 3]
+                        slot = wt[s * stage_floats:(s + 1) * stage_floats].reshape(-1, wf)
+                        for kk in range(ks, kk_n, ksplit):
+                            base = (wm * 16 + g + h) * p + t + s * bk + kk * 8
+                            a = np.stack([span[base], span[base + 8 * p], span[base + 4],
+                                          span[base + 8 * p + 4]], 1)
+                            a_hi = _tf32(a.astype(np.float32)).astype(np.float64)
+                            for jn in range(ntiles):
+                                w = slot[((h * kk_n + kk) * ntiles + jn) * 32 + lane]
+                                if passes == 3:
+                                    acc[jn] += _mma(a, w.astype(np.float64))
+                                else:
+                                    acc[jn] += _mma(a_hi, _tf32(w).astype(np.float64))
+                    for jn in range(ntiles):
+                        n = jn * 8 + 2 * t
+                        red[warp, g, n], red[warp, g, n + 1] = acc[jn, :, 0], acc[jn, :, 1]
+                        red[warp, g + 8, n], red[warp, g + 8, n + 1] = acc[jn, :, 2], acc[jn, :, 3]
                 for m in range(bm):
                     for c in range(bn):
                         r, n = r0 + m, y * bn + c
                         if r < rows and n < width:
-                            out[z, r, n] = epi(red[0, m, c] + red[1, m, c])
+                            total = sum(red[(hk // ksplit) * 4 + (hk % ksplit) * warps_m + m // 16,
+                                            m % 16, c] for hk in range(2 * ksplit))
+                            out[z, r, n] = epi(total)
     return out
 
 
@@ -126,9 +129,9 @@ def _expand(y):
 def test_dense_k1_as_the_kernel_reads_it(rng, n_fft, t, bm):
     """K1's dense form, emulated at each row tile (16, 32, 64) and at an N
     whose N/2 is not a multiple of 8 (200): within 2e-4 of the float64 plain
-    version, inside K1's 5e-4.  The emulation keeps A in float64; hi + lo
-    carries W to ~2^-22 relative, which the arcsinh's slope of ~87 at 0
-    reads as up to ~5e-5 here.  A misplaced index moves outputs by ~1."""
+    version, inside K1's 5e-4.  The emulation keeps A in float64 and W in
+    float32, which the arcsinh's slope of ~87 at 0 reads as up to ~5e-5
+    here.  A misplaced index moves outputs by ~1."""
     hop = n_fft // 2
     x, ref = _k1_case(rng, n_fft, t)
     f = K.n_frames(t, n_fft, hop)
@@ -165,27 +168,23 @@ def test_dense_control_tf32x1_is_visible(rng):
     assert np.abs(got - ref).max() > 5e-4
 
 
-def test_dense_operand_split_and_padding():
-    """hi + lo carries the float64 matrix to ~2^-22; hi has TF32's zero low
-    bits; the padding rows and columns are zero; the operand has one slot
-    of 2 * BK * BN * 2 floats per (column tile, stage)."""
+def test_dense_operand_order_and_padding():
+    """The operand holds the float32 matrix, each value once, in the
+    fragment order; the padding rows and columns are zero; one slot of
+    2 * BK * BN floats per (column tile, stage)."""
     for kernel in ("mdct_spectro", "imdct_audio"):
         for n_fft in (200, 960):
             halves = K.dense_halves(kernel, n_fft)
             op = K.dense_operand(halves)
             hop = n_fft // 2
             hp, wp = -(-hop // K.DENSE_BK) * K.DENSE_BK, -(-hop // K.DENSE_BN) * K.DENSE_BN
-            assert op.dtype == np.float32 and op.size == 4 * hp * wp
-            quad = op.reshape(wp // K.DENSE_BN, hp // K.DENSE_BK, 2, K.DENSE_BK // 8,
-                              K.DENSE_BN // 8, 8, 4, 4)
-            assert not (quad[..., :2].view(np.uint32) & 0x1FFF).any()
+            assert op.dtype == np.float32 and op.size == 2 * hp * wp
+            pair = op.reshape(wp // K.DENSE_BN, hp // K.DENSE_BK, 2, K.DENSE_BK // 8,
+                              K.DENSE_BN // 8, 8, 4, 2)
             # back to (h, depth, column): depth = s*BK + step*8 + q*4 + t
-            hi_lo = quad.reshape(*quad.shape[:-1], 2, 2)  # (..., part, q)
-            w = hi_lo.transpose(7, 2, 1, 3, 8, 6, 0, 4, 5).reshape(2, 2, hp, wp)
-            recon = w[0].astype(np.float64) + w[1]
-            np.testing.assert_allclose(recon[:, :hop, :hop], halves, rtol=0, atol=4e-7 *
-                                       np.abs(halves).max())
-            assert not recon[:, hop:].any() and not recon[:, :, hop:].any()
+            w = pair.transpose(2, 1, 3, 7, 6, 0, 4, 5).reshape(2, hp, wp)
+            np.testing.assert_array_equal(w[:, :hop, :hop], halves.astype(np.float32))
+            assert not w[:, hop:].any() and not w[:, :, hop:].any()
 
 
 def test_dense_halves_fold_the_overlap_add(rng):
