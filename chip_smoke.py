@@ -14,11 +14,17 @@ Phases (none catches an exception; any failure exits non-zero):
      n_fft 512 (T in {32512, 32000}, batch 1 and each main path's batch:
      8 serving, 16 generate, 20 train, and phase 12's 10 a rank and 4 a
      replica) and at n_fft 64, 128 and 2048
-     (batch 2), and the dense form at n_fft 480 (batch 2).  The
+     (batch 2), and the dense form at n_fft 480, 960 and 200 (N/2 not a
+     multiple of 8; T 24000, 60960, 24000) at batches 2, 8, 16 and 20.  The
      normalized f32 check runs on noise near full scale: on unit-variance
-     noise the f32 plain version is itself ~5e-4 off float64;
-  4. K2 (denormalize + IMDCT + overlap-add) the same way, and a K1 -> K2
-     round trip at each n_fft;
+     noise the f32 plain version is itself ~5e-4 off float64.  For the
+     dense form each normalized check also records its error against
+     float64 beside the f32 plain version's and the 1xTF32 control's (the
+     same kernel with hi x hi only, launched from here alone) on the same
+     inputs, and holds it to ``DENSE_FACTOR`` (2) times the plain one's;
+  4. K2 (denormalize + IMDCT + overlap-add) the same way (the dense form's
+     record on the [-1, 1] spectrum), and a K1 -> K2 round trip at each
+     n_fft;
   5. the flagship-width LocalEnhancer on the card against the same seeded
      weights on the CPU (batch 2, TF32 off), on its logits before the tanh,
      and a control reading of the same check with TF32 allowed;
@@ -31,8 +37,9 @@ Phases (none catches an exception; any failure exits non-zero):
      error within ``BF16_FACTOR`` times the CPU's, by max and RMS), and the
      three requests again through a bf16 model, counted the same way;
   7. timings at each main path's batch (4, 8, 10, 16, 20) of each kernel (FFT
-     and dense forms at n_fft 512), its plain version and a library matmul
-     yardstick: as
+     and dense forms at n_fft 512; the dense forms at n_fft 960 at batches
+     8, 16 and 20), its plain version and a library matmul yardstick, with
+     the dense product's own bound in 3xTF32 (``dense_bound_ms``): as
      CUDA-graph replays timed by CUDA events (``ms``), as eager calls
      (``eager_ms``, which add the host's launch cost) and, for the
      kernels, as device time from ``torch.profiler`` (``device_ms``),
@@ -139,16 +146,29 @@ Phases (none catches an exception; any failure exits non-zero):
      the control; then 4 bf16 Adam steps a rank, timed; (c)
      ``api.upsample`` over two replicas on the card against one (2e-3 of
      the largest value; each replica launching K1 and K2 once a batch);
-     (d) ``--gpu_ids 0,1`` refused by both CLIs on a host of one card.
+     (d) ``--gpu_ids 0,1`` refused by both CLIs on a host of one card;
+ 13. the flagship at n_fft 960 / hop 480 / win 960 / segment 60960 (a 20 ms
+     window and 10 ms hop at 48 kHz; the dense forms' path), each path with
+     the counts set to 0 just before it: (a) three ``api.upsample`` requests
+     (1.0, 2.2, 3.7 s at 16 kHz, batch 8) in float32 and in bf16, each
+     batch launching ``mdct_spectro_dense`` and ``imdct_audio_dense`` once
+     and the FFT forms never, the float32 SR of the first against the port
+     on the CPU (2e-3 of its largest value, phase 6's bound), the 3.7 s
+     request timed in each precision (median of 5); (b) 3 bf16
+     Adam steps at batch 20: finite losses, G and D move,
+     ``mdct_spectro_dense`` twice a step and nothing else.
 Every result is one JSON line; a ``kernels`` line sums the kernels up
 (``launches`` on the serving path, ``<path>_launches`` on each other path:
 ``serving_fp16``, ``train`` (float32), ``train_fp16``, ``generate`` and
 ``train_cli`` (both ``--fp16``), phase 11's ``local_attn_serving``,
 ``local_attn_train_fp16`` and ``two_enhancers_serving``, phase 12's
 ``dp_multihost_train_cli``, ``dp_two_ranks_train`` (both ranks) and
-``dp_replicas_serving`` (both replicas), and under
-``paths`` each path's batch, launches and the kernel's numbers at that
-batch) and the last line is ``{"ok": true, "device": {...}}``.  Without
+``dp_replicas_serving`` (both replicas), phase 13's ``n960_serving``,
+``n960_serving_fp16`` and ``n960_train_fp16``, and under ``paths`` each
+path's n_fft, batch, launches and the kernel's numbers there; ``launches``
+adds phase 6's serving to phase 13's, and the numbers are at batch 8 and
+n_fft 512 for the FFT forms, 960 for the dense forms) and the last line is
+``{"ok": true, "device": {...}}``.  Without
 CUDA, or run outside a checkout of the repository, it prints no result and
 exits 2.
 """
@@ -156,6 +176,7 @@ exits 2.
 from __future__ import annotations
 
 import csv
+import ctypes
 import json
 import math
 import statistics
@@ -243,6 +264,21 @@ DP_CLI_FLAGS = TRAIN_CLI_FLAGS + [
     "--display_freq", "1000000", "--eval_freq", "1000000", "--save_latest_freq", "1000000",
     "--nThreads", "1"]
 DP_STEP2_BOUNDS = {"f32": 1e-3, "bf16": 2.0 ** -7}
+# Phase 13: the flagship at a 20 ms window and 10 ms hop at 48 kHz (n_fft 960,
+# not a power of two, so K1 and K2 run their dense forms), 127 hops a segment
+# (the generator's 128 frames, a 128 x 480 spectrum); its bf16 Adam steps.
+DENSE_GEOMETRY = dict(n_fft=960, hop_length=480, win_length=960, segment_length=127 * 480)
+DENSE_STEPS = 3
+DENSE_TIMED_REQUESTS = 5
+# Phases 3-4: the dense form at each N (not a power of two: 480 and 960, and
+# 200, whose N/2 is not a multiple of 8) and batch, with its frames a row
+DENSE_CHECKS = ((480, 24000, 100), (960, 60960, 128), (200, 24000, 100))
+DENSE_BATCHES = (2, 8, 16, 20)
+# Phase 7: the batches at which it times the dense form at n_fft 960
+DENSE_TIMED_BATCHES = (8, 16, 20)
+# The dense form's error against the float64 plain version may be this many
+# times the float32 plain version's own on the same inputs.
+DENSE_FACTOR = 2.0
 # Each main path's batch: phases 3, 4 and 7 check and time every kernel at each.
 PATH_BATCHES = {"serving": MAIN_BATCH, "serving_fp16": MAIN_BATCH, "train": TRAIN_BATCH,
                 "train_fp16": TRAIN_BATCH, "generate": GENERATE_BATCH,
@@ -253,8 +289,9 @@ PATH_BATCHES = {"serving": MAIN_BATCH, "serving_fp16": MAIN_BATCH, "train": TRAI
                 "dp_replicas_serving": MAIN_BATCH // DP_REPLICAS}
 BATCHES = tuple(sorted({1, *PATH_BATCHES.values()}))
 TIMED_BATCHES = tuple(sorted(set(PATH_BATCHES.values())))
-# Published peaks: float32 FMA rate outside the tensor cores, memory rate.
-PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12)}
+# Published peaks: float32 FMA rate outside the tensor cores, memory rate,
+# dense TF32 tensor-core rate.
+PEAKS = {"sxm": (67e12, 3.35e12, 495e12), "pcie": (51e12, 2.0e12, 378e12)}
 # K1's epilogue and K2's prologue per spectrum value: the gain, asinh or
 # sinh, the ln10 scale and the affine FMA, one operation each.
 AFFINE_OPS = 4
@@ -1780,6 +1817,125 @@ def parallel_phase(smi: str, dev: torch.device, bare_step: dict, cli_step: dict)
     return paths
 
 
+def dense_phase(rng, smi: str, dev: torch.device) -> dict:
+    """Phase 13: the flagship (full width and depth) at n_fft 960, hop 480,
+    win 960, segment 127 * 480, where K1 and K2 run their dense forms.  (a)
+    three ``api.upsample`` requests in float32 and in bf16, each batch
+    launching ``mdct_spectro_dense`` and ``imdct_audio_dense`` once and the
+    FFT forms never, one request held against the port on the CPU at phase
+    6's bound; (b) ``DENSE_STEPS`` bf16 Adam steps at batch 20, finite
+    losses, G and D moving, ``mdct_spectro_dense`` twice a step and nothing
+    else.  Returns each path's launches."""
+    from mdctgan_tpu_torch import api
+    from mdctgan_tpu_torch.configs import flagship_opt
+    from mdctgan_tpu_torch.data.dataset import AudioAppDataset
+    from mdctgan_tpu_torch.data.synthetic import speech_like
+    from mdctgan_tpu_torch.models.discriminator import build_discriminator
+    from mdctgan_tpu_torch.models.generator import build_generator
+    from mdctgan_tpu_torch.ops import mdct_kernels as K
+    from mdctgan_tpu_torch.ops.features import SpectralTransform
+    from mdctgan_tpu_torch.ops.resample import degrade_lr
+    from mdctgan_tpu_torch.options import spectral_config_from_opt, train_options
+    from mdctgan_tpu_torch.train.schedule import make_optimizers
+    from mdctgan_tpu_torch.train.state import create_train_state
+    from mdctgan_tpu_torch.train.step import build_train_step
+    from mdctgan_tpu_torch.weights import random_jax_trees, state_dict_from_jax
+
+    t_phase = time.perf_counter()
+    opt = dict(flagship_opt(), **DENSE_GEOMETRY)
+    seg = opt["segment_length"]
+    state = state_dict_from_jax(*random_jax_trees(build_generator(opt), rng))
+    requests = [speech_like(rng, s) for s in GENERATE_SECONDS]
+    # the batches of MAIN_BATCH segments each request is served in
+    batches = sum(-(-len(AudioAppDataset(a, 16000, seg, 512).segments_of(np.zeros(3 * len(a))))
+                    // MAIN_BATCH) for a in requests)
+    out, served = {}, {}
+
+    # 13a. serving, float32 and bf16 -----------------------------------------
+    for path, run_opt in (("n960_serving", opt), ("n960_serving_fp16", dict(opt, fp16=True))):
+        model = api.create_model(run_opt, device=dev, state_dict=state)
+        K.reset_launch_counts()
+        served[path] = [api.upsample(a, 16000, model, is_lr_input=True, gen_overlap=512,
+                                     batch_size=MAIN_BATCH) for a in requests]
+        out[path] = dict(K.LAUNCHES)
+        # the longest request's wall time, as phase 7 times serving: a
+        # warm-up, then the median of DENSE_TIMED_REQUESTS
+        walls = []
+        for _ in range(DENSE_TIMED_REQUESTS + 1):
+            t0 = time.perf_counter()
+            api.upsample(requests[-1], 16000, model, is_lr_input=True, gen_overlap=512,
+                         batch_size=MAIN_BATCH)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = statistics.median(walls[1:])
+        emit({"timing": {"name": "upsample_end_to_end", "path": path, "card": smi,
+                         "n_fft": opt["n_fft"], "request_s": len(requests[-1]) / 16000,
+                         "ms": wall, "ms_per_audio_s": wall / (len(requests[-1]) / 16000)}})
+        del model
+        expected = {name: 0 for name in K.LAUNCHES}
+        expected["mdct_spectro_dense"] = expected["imdct_audio_dense"] = batches
+        emit({"phase": 13, "path": path, "launches": out[path], "expected": expected,
+              "requests_s": [len(a) / 16000 for a in requests], "n_fft": opt["n_fft"]})
+        if out[path] != expected:
+            raise AssertionError(f"{path} launches {out[path]}, expected {expected}")
+        for a, sr in zip(requests, served[path]):
+            if sr.shape != (round(len(a) * 3),) or not np.isfinite(sr).all():
+                raise AssertionError(f"{path}: bad output {sr.shape} for {len(a)} samples")
+    cpu_model = api.create_model(opt, device="cpu", state_dict=state)
+    ref = api.upsample(requests[0], 16000, cpu_model, is_lr_input=True, gen_overlap=512,
+                       batch_size=2)
+    del cpu_model
+    scale = float(np.abs(ref).max())
+    check("13a: upsample at n_fft 960 card vs CPU",
+          float(np.abs(served["n960_serving"][0] - ref).max()), 2e-3 * scale,
+          request_s=len(requests[0]) / 16000, max_abs_ref=scale)
+    emit({"reading": "13a: upsample at n_fft 960, bf16 vs float32 on the card",
+          "max_abs_diff": [float(np.abs(p - q).max()) for p, q in
+                           zip(served["n960_serving_fp16"], served["n960_serving"])]})
+
+    # 13b. DENSE_STEPS bf16 Adam steps at batch 20 ----------------------------
+    run_opt = dict(opt, fp16=True)
+    tro = train_options(run_opt)
+    cfg = spectral_config_from_opt(run_opt)
+    hr = speech_like(rng, TRAIN_BATCH * seg / 48000, 48000)[: TRAIN_BATCH * seg]
+    hr = hr.reshape(TRAIN_BATCH, seg)
+    with torch.no_grad():
+        lr = degrade_lr(torch.from_numpy(hr), 48000, cfg.lr_sampling_rate,
+                        cfg.hr_sampling_rate)[:, :seg].contiguous()
+    batch = {"lr_audio": lr.to(dev), "hr_audio": torch.from_numpy(hr).to(dev)}
+    g_tx, d_tx = make_optimizers(tro["lr"], tro["beta1"], tro["niter"], tro["niter_decay"], 1000)
+    train_state = create_train_state(build_generator(run_opt), build_discriminator(run_opt),
+                                     g_tx, d_tx, device=dev,
+                                     rng=torch.Generator().manual_seed(SEED))
+    step = build_train_step(SpectralTransform(cfg, dev), g_tx, d_tx,
+                            use_lsgan=not tro["no_lsgan"], lambda_feat=tro["lambda_feat"],
+                            n_layers_d=tro["n_layers_D"], num_d=tro["num_D"],
+                            use_ganfeat=not tro["no_ganFeat_loss"])
+    first = {n: torch.cat([p.detach().ravel() for p in m.parameters()])
+             for n, m in (("G", train_state.generator), ("D", train_state.discriminator))}
+    K.reset_launch_counts()
+    losses = []
+    for _ in range(DENSE_STEPS):
+        train_state, metrics = step(train_state, batch)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    out["n960_train_fp16"] = dict(K.LAUNCHES)
+    moved = {n: float((torch.cat([p.detach().ravel() for p in m.parameters()]) - first[n])
+                      .abs().max())
+             for n, m in (("G", train_state.generator), ("D", train_state.discriminator))}
+    expected = {name: 0 for name in K.LAUNCHES}
+    expected["mdct_spectro_dense"] = 2 * DENSE_STEPS
+    emit({"phase": 13, "path": "n960_train_fp16", "batch": TRAIN_BATCH, "steps": DENSE_STEPS,
+          "losses": losses, "max_abs_param_move": moved, "launches": out["n960_train_fp16"],
+          "expected": expected})
+    if not all(math.isfinite(v) for h in losses for v in h.values()):
+        raise AssertionError("13b: a bf16 loss at n_fft 960 is not finite")
+    if not (moved["G"] > 0 and moved["D"] > 0):
+        raise AssertionError(f"13b: a network did not move: {moved}")
+    if out["n960_train_fp16"] != expected:
+        raise AssertionError(f"13b launches {out['n960_train_fp16']}, expected {expected}")
+    emit({"phase": 13, "phase_s": time.perf_counter() - t_phase, "card": smi})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1814,7 +1970,7 @@ def drive() -> int:
     kind = torch.cuda.get_device_name(0)
     emit({"torch": torch.__version__, "cuda": torch.version.cuda, "device": kind,
           "count": torch.cuda.device_count()})
-    flops_peak, bytes_peak = PEAKS["pcie" if "pcie" in kind.lower() else "sxm"]
+    flops_peak, bytes_peak, tf32_peak = PEAKS["pcie" if "pcie" in kind.lower() else "sxm"]
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
 
@@ -1828,6 +1984,34 @@ def drive() -> int:
                 print(f"[ptxas {name}] {line.strip()}", flush=True)
 
     errs = {name: 0.0 for name in K.LAUNCHES}
+
+    def tf32x1(kernel: str, src, out, *args) -> torch.Tensor:
+        """The dense form's 1xTF32 instantiation (hi x hi only) on ``src``:
+        the accuracy control, launched from here alone (no wrapper reaches
+        it, no count moves), reading the same operand as the dense form."""
+        fn = getattr(_build.load_library(kernel), f"{kernel}_dense_tf32x1_launch")
+        fn.argtypes = K._ARGTYPES[kernel]
+        fn.restype = ctypes.c_int
+        operand = K._dense_operand(kernel, args[2], dev)  # args: batch, T or F, n_fft, ...
+        err = fn(src.data_ptr(), operand.data_ptr(), out.data_ptr(), *args,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{kernel} 1xTF32 control: CUDA error {err}")
+        return out
+
+    def dense_record(name: str, got, plain, control, truth, bound: float, held: bool,
+                     **info) -> None:
+        """The dense form's error against float64 beside the float32 plain
+        version's and the 1xTF32 control's on the same inputs; held to the
+        bound and, where ``held``, to DENSE_FACTOR times the plain
+        version's error (else the ratio is read)."""
+        err, plain_err = max_err(got, truth), max_err(plain, truth)
+        emit({"dense_accuracy": name, "max_abs_err": err, "plain_f32_err": plain_err,
+              "tf32x1_err": max_err(control, truth), "bound": bound, "factor": DENSE_FACTOR,
+              "ratio": err / plain_err, "ratio_held": held, **info})
+        if not err <= bound or (held and not err <= DENSE_FACTOR * plain_err):
+            raise AssertionError(f"{name}: error {err} against float64; bound {bound}, "
+                                 f"{DENSE_FACTOR}x the float32 plain version's {plain_err}")
 
     def check_transforms(n_fft: int, batches, ts, frames: int) -> None:
         """Phases 3 and 4 at one n_fft, through the wrappers (which pick the
@@ -1863,6 +2047,24 @@ def drive() -> int:
                       "max_abs_err": max_err(
                           K.mdct_spectro_plain(x, mat, GAIN, 0.2, 0.0), ref64),
                       "n_fft": n_fft, "batch": b, "T": t})
+                if k1.endswith("_dense"):
+                    # The normalized maximum is one output at the arcsinh's
+                    # slope of ~87 near 0, where two float32 summation orders
+                    # part by up to ~2x either way from draw to draw
+                    # (probes/tf32_accumulation_model.py: even a 5-product
+                    # split read 2.09x the CPU's float32 on one of 8 draws at
+                    # N 200): the ratio is read there and held on the raw
+                    # product, which measures the same arithmetic.
+                    dense_record("K1 dense normalized vs f64 plain", got,
+                                 K.mdct_spectro_plain(x, mat, GAIN, 0.2, 0.0),
+                                 tf32x1("mdct_spectro", x, torch.empty_like(got), b, t, n_fft,
+                                        got.shape[1], GAIN, 0.2, 0.0),
+                                 ref64, 5e-4, False, n_fft=n_fft, batch=b, T=t)
+                    dense_record("K1 dense raw vs f64 plain", raw, K.mdct_spectro_plain(x, mat),
+                                 tf32x1("mdct_spectro", x, torch.empty_like(raw), b, t, n_fft,
+                                        raw.shape[1], 0.0, 1.0, 0.0),
+                                 K.mdct_spectro_plain(x.double(), mats["f64"][0]), 2e-3, True,
+                                 n_fft=n_fft, batch=b, T=t)
                 quiet = 0.25 * x
                 errs[k1] = max(errs[k1], check(
                     "K1 normalized vs f32 plain", max_err(
@@ -1878,6 +2080,18 @@ def drive() -> int:
             got = K.imdct_audio(y, syn, GAIN, 5.0, 0.0)
             raw = K.imdct_audio(sp, syn)
             assert got.shape == (b, (frames - 1) * k)
+            if k2.endswith("_dense"):
+                dense_record("K2 dense from [-1,1] vs f64 plain", got,
+                             K.imdct_audio_plain(y, syn, GAIN, 5.0, 0.0),
+                             tf32x1("imdct_audio", y, torch.empty_like(got), b, frames, n_fft,
+                                    GAIN, 5.0, 0.0),
+                             K.imdct_audio_plain(y.double(), mats["f64"][1], GAIN, 5.0, 0.0),
+                             1e-3, True, n_fft=n_fft, batch=b)
+                dense_record("K2 dense raw vs f64 plain", raw, K.imdct_audio_plain(sp, syn),
+                             tf32x1("imdct_audio", sp, torch.empty_like(raw), b, frames, n_fft,
+                                    0.0, 1.0, 0.0),
+                             K.imdct_audio_plain(sp.double(), mats["f64"][1]), 1e-4, True,
+                             n_fft=n_fft, batch=b)
             for prec, (_, sy) in mats.items():
                 errs[k2] = max(errs[k2], check(
                     f"K2 from [-1,1] vs {prec} plain", max_err(
@@ -1896,7 +2110,8 @@ def drive() -> int:
     check_transforms(512, BATCHES, (32512, 32000), 128)
     for n in (64, 128, 2048):
         check_transforms(n, (2,), (32512,), 128)
-    check_transforms(480, (2,), (24000,), 100)  # not a power of two: dense form
+    for n, t, frames in DENSE_CHECKS:  # not a power of two: the dense form
+        check_transforms(n, DENSE_BATCHES, (t,), frames)
     n_fft, k_bins = 512, 256
     mat = K.spectro_matrix(n_fft, dev)
     syn = K.synth_matrix(n_fft, dev)
@@ -2003,44 +2218,55 @@ def drive() -> int:
         return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
     rows = {}
-    for b in TIMED_BATCHES:
-        x = torch.from_numpy(rng.standard_normal((b, 32512)).astype(np.float32)).to(dev)
-        f = K.n_frames(32512, 512, 256)
-        frames = x.new_empty((b * f, n_fft)).normal_()
-        y = torch.from_numpy(rng.uniform(-1, 1, (b, f, k_bins)).astype(np.float32)).to(dev)
-        spec2d = y.reshape(b * f, k_bins)
-        # the least work of the function, whatever computes it: each frame by
-        # the FFT, each input read once and each output written once (the
-        # window of N floats is the only table the function needs)
-        k1 = bound_ms(b * f * (mdct_frame_ops(n_fft) + AFFINE_OPS * k_bins),
-                      4.0 * (b * 32512 + n_fft + b * f * k_bins))
-        k2 = bound_ms(b * f * (AFFINE_OPS * k_bins + mdct_frame_ops(n_fft))
-                      + b * (f - 1) * k_bins,
-                      4.0 * (b * f * k_bins + n_fft + b * (f - 1) * k_bins))
-        # the dense (N, N/2) product of the dense form, at the f32 rate
-        dense = {"mdct_spectro": 2.0 * b * f * n_fft * k_bins,
-                 "imdct_audio": 2.0 * b * (f - 1) * n_fft * k_bins}
-        for name, fft, dense_form, plain, lib, bound in (
-            ("mdct_spectro", lambda: K.mdct_spectro(x, mat, GAIN, 0.2, 0.0),
-             lambda: K.mdct_spectro_dense(x, mat, GAIN, 0.2, 0.0),
-             lambda: K.mdct_spectro_plain(x, mat, GAIN, 0.2, 0.0),
-             lambda: torch.matmul(frames, mat), k1),
-            ("imdct_audio", lambda: K.imdct_audio(y, syn, GAIN, 5.0, 0.0),
-             lambda: K.imdct_audio_dense(y, syn, GAIN, 5.0, 0.0),
-             lambda: K.imdct_audio_plain(y, syn, GAIN, 5.0, 0.0),
-             lambda: torch.matmul(spec2d, syn), k2),
-        ):
-            shared = {"plain_ms": time_ms(plain), "plain_eager_ms": eager_ms(plain),
-                      "library_ms": time_ms(lib), "library_eager_ms": eager_ms(lib),
-                      "bound_ms": bound[0], "bound_by": bound[1],
-                      "dense_bound_ms": dense[name] / flops_peak * 1e3}
-            for kname, fn in ((name, fft), (f"{name}_dense", dense_form)):
-                ms = time_ms(fn)
-                row = {"name": kname, "batch": b, "n_fft": n_fft, "ms": ms,
-                       "eager_ms": eager_ms(fn), "device_ms": device_ms(fn), **shared,
-                       "share_of_bound": bound[0] / ms}
-                emit({"timing": row})
-                rows[(kname, b)] = row
+
+    def time_forms(n: int, batches, forms) -> None:
+        """Each form in ``forms`` of K1 and K2 at n_fft ``n`` and each batch
+        of segments of 127 hops, beside the plain version, the library
+        product and the bound; into ``rows[(name, n, batch)]``."""
+        k, t = n // 2, 127 * (n // 2)
+        mat_n, syn_n = K.spectro_matrix(n, dev), K.synth_matrix(n, dev)
+        for b in batches:
+            x = torch.from_numpy(rng.standard_normal((b, t)).astype(np.float32)).to(dev)
+            f = K.n_frames(t, n, k)
+            frames = x.new_empty((b * f, n)).normal_()
+            y = torch.from_numpy(rng.uniform(-1, 1, (b, f, k)).astype(np.float32)).to(dev)
+            spec2d = y.reshape(b * f, k)
+            # the least work of the function, whatever computes it: each frame
+            # by the FFT, each input read once and each output written once
+            # (the window of N floats is the only table the function needs)
+            k1 = bound_ms(b * f * (mdct_frame_ops(n) + AFFINE_OPS * k),
+                          4.0 * (b * t + n + b * f * k))
+            k2 = bound_ms(b * f * (AFFINE_OPS * k + mdct_frame_ops(n)) + b * (f - 1) * k,
+                          4.0 * (b * f * k + n + b * (f - 1) * k))
+            # the dense form's own product, 3xTF32: three TF32 products of
+            # 2 * rows * N * N/2 operations at the dense TF32 rate
+            dense = {"mdct_spectro": 3 * 2.0 * b * f * n * k,
+                     "imdct_audio": 3 * 2.0 * b * (f - 1) * n * k}
+            for name, fns, plain, lib, bound in (
+                ("mdct_spectro", {"fft": lambda: K.mdct_spectro(x, mat_n, GAIN, 0.2, 0.0),
+                                  "dense": lambda: K.mdct_spectro_dense(x, mat_n, GAIN, 0.2, 0.0)},
+                 lambda: K.mdct_spectro_plain(x, mat_n, GAIN, 0.2, 0.0),
+                 lambda: torch.matmul(frames, mat_n), k1),
+                ("imdct_audio", {"fft": lambda: K.imdct_audio(y, syn_n, GAIN, 5.0, 0.0),
+                                 "dense": lambda: K.imdct_audio_dense(y, syn_n, GAIN, 5.0, 0.0)},
+                 lambda: K.imdct_audio_plain(y, syn_n, GAIN, 5.0, 0.0),
+                 lambda: torch.matmul(spec2d, syn_n), k2),
+            ):
+                shared = {"plain_ms": time_ms(plain), "plain_eager_ms": eager_ms(plain),
+                          "library_ms": time_ms(lib), "library_eager_ms": eager_ms(lib),
+                          "bound_ms": bound[0], "bound_by": bound[1],
+                          "dense_bound_ms": dense[name] / tf32_peak * 1e3}
+                for form in forms:
+                    kname, fn = name if form == "fft" else f"{name}_dense", fns[form]
+                    ms = time_ms(fn)
+                    row = {"name": kname, "batch": b, "n_fft": n, "ms": ms,
+                           "eager_ms": eager_ms(fn), "device_ms": device_ms(fn), **shared,
+                           "share_of_bound": bound[0] / ms, "card": smi}
+                    emit({"timing": row})
+                    rows[(kname, n, b)] = row
+
+    time_forms(512, TIMED_BATCHES, ("fft", "dense"))
+    time_forms(DENSE_GEOMETRY["n_fft"], DENSE_TIMED_BATCHES, ("dense",))
 
     # the least time of one kernel node in a graph: a one-element add
     tiny = torch.zeros(1, device=dev)
@@ -2089,6 +2315,9 @@ def drive() -> int:
     torch.cuda.empty_cache()
     parallel_launches = parallel_phase(smi, dev, step16_timing, cli_step)
 
+    # 13. the flagship at n_fft 960: the dense forms' path ------------------------
+    dense_launches = dense_phase(rng, smi, dev)
+
     replaces = {
         "mdct_spectro": "mdctgan_tpu/ops/pallas_mdct.py:80",
         "imdct_audio": "mdctgan_tpu/ops/pallas_mdct.py:185",
@@ -2097,19 +2326,30 @@ def drive() -> int:
     path_launches = {"serving": launches, "serving_fp16": launches16,
                      "train": train_launches, "train_fp16": train16_launches,
                      "generate": generate_launches, "train_cli": train_cli_launches,
-                     **modes_launches, **parallel_launches}
+                     **modes_launches, **parallel_launches, **dense_launches}
+    # each path's n_fft and batch: phase 13's at n_fft 960, the others' at 512
+    path_shapes = {**{path: (512, b) for path, b in PATH_BATCHES.items()},
+                   "n960_serving": (DENSE_GEOMETRY["n_fft"], MAIN_BATCH),
+                   "n960_serving_fp16": (DENSE_GEOMETRY["n_fft"], MAIN_BATCH),
+                   "n960_train_fp16": (DENSE_GEOMETRY["n_fft"], TRAIN_BATCH)}
+    # the numbers at the kernel's own main path: serving at batch 8, at n_fft
+    # 512 for the FFT forms, 960 for the dense forms
+    main_n = {"mdct_spectro": 512, "imdct_audio": 512,
+              "mdct_spectro_dense": DENSE_GEOMETRY["n_fft"],
+              "imdct_audio_dense": DENSE_GEOMETRY["n_fft"]}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"mdctgan_tpu_torch/csrc/{name.removesuffix('_dense')}.cu",
          "replaces": replaces[name.removesuffix("_dense")],
-         "launches": launches[name],
+         "launches": launches[name] + dense_launches["n960_serving"][name],
          **{f"{path}_launches": path_launches[path][name] for path in path_launches
             if path != "serving"},
-         "max_abs_err": errs[name],
-         **{k: rows[(name, MAIN_BATCH)][k] for k in numbers},
-         "paths": {path: {"batch": b, "launches": path_launches[path][name],
-                          **{k: rows[(name, b)][k] for k in numbers}}
-                   for path, b in PATH_BATCHES.items()}}
+         "max_abs_err": errs[name], "n_fft": main_n[name],
+         **{k: rows[(name, main_n[name], MAIN_BATCH)][k] for k in numbers},
+         "paths": {path: {"n_fft": n, "batch": b, "launches": path_launches[path][name],
+                          **{k: rows[(name, n, b)][k] for k in numbers
+                             if (name, n, b) in rows}}
+                   for path, (n, b) in path_shapes.items()}}
         for name in ("mdct_spectro", "imdct_audio", "mdct_spectro_dense",
                      "imdct_audio_dense")
     ]})

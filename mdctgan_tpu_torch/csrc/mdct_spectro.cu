@@ -123,9 +123,9 @@ extern "C" int mdct_spectro_launch(const float* signal, const float* tables,
   }
 }
 
-// The dense form: `wop` is dense_operand(spectro_matrix(N)) of
-// ops/mdct_kernels.py (C split into its two halves of hop rows, TF32 hi/lo
-// parts in fragment order); frame f of batch row b is row f of the product.
+// The dense form: `wop` is dense_operand of spectro_matrix(N)'s two halves
+// of hop rows (ops/mdct_kernels.py, in fragment order); frame f of batch
+// row b is row f of the product.
 template <int PASSES>
 int launch_dense(const float* signal, const float* wop, float* out, int batch, long long t,
                  int n_fft, int n_frames, float gain, float scale, float shift,

@@ -37,17 +37,16 @@
 //     k8 steps of each stage; every warp owns all 32 columns, so one A
 //     fragment feeds 4 n8 tiles.  The warps' sums meet in shared memory and
 //     the epilogue writes each row of the tile as 32 neighbouring floats.
-//   * 3xTF32: a = a_hi + a_lo, w = w_hi + w_lo (hi rounded to TF32 by two
-//     integer operations, lo = x - hi, which the tensor core reads
-//     truncated), acc += a_lo w_hi + a_hi w_lo + a_hi w_hi.  The tensor
-//     cores truncate where they add, so every two k8 steps (16 depth
-//     values) sum into fresh register tiles that are then added to the
-//     float32 accumulator, rounded to nearest: summed straight into the
-//     accumulator, the truncation builds up over the depth
-//     (probes/tf32_accumulation_model.py).  The arcsinh of gain 1000 (slope
-//     ~87 at 0) and the sinh (slope up to ~575) need float32 accuracy;
-//     1xTF32 (PASSES = 1, chip_smoke.py's control only) shows what the
-//     split buys.
+//   * 3xTF32: a = a_hi + a_lo, w = w_hi + w_lo (each part rounded to TF32,
+//     to nearest, by two integer operations), acc += a_lo w_hi + a_hi w_lo
+//     + a_hi w_hi.  The tensor cores truncate where they add, so every two
+//     k8 steps (16 depth values) sum into fresh register tiles that are
+//     then added to the float32 accumulator, rounded to nearest: summed
+//     straight into the accumulator, the truncation builds up over the
+//     depth (probes/tf32_accumulation_model.py).  The arcsinh of gain 1000
+//     (slope ~87 at 0) and the sinh (slope up to ~575) need float32
+//     accuracy; 1xTF32 (PASSES = 1, chip_smoke.py's control only) shows
+//     what the split buys.
 //   * BM is the largest of 64, 32, 16 whose grid puts a block on every SM
 //     and of which two blocks fit an SM (the serving batch of 8 gives 256
 //     blocks of 32 rows at N 512 and 480 at N 960).
@@ -117,12 +116,11 @@ __device__ __forceinline__ uint32_t tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
-// x = hi + lo: hi rounded to TF32, lo = x - hi exactly, which the tensor
-// core reads truncated to TF32 (2^-21 of x); lo only for 3xTF32.
+// x = hi + lo, each rounded to TF32 (x to 2^-22); lo only for 3xTF32.
 template <int PASSES>
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32(x);
-  if (PASSES == 3) lo = __float_as_uint(x - __uint_as_float(hi));
+  if (PASSES == 3) lo = tf32(x - __uint_as_float(hi));
 }
 
 // d += a * b over one m16n8k8 tile, TF32 inputs, float32 accumulators.

@@ -21,7 +21,7 @@ failure:
   against ``spectro_matrix`` (K2: ``[S[:, k:]; S[:, :k]]`` of
   ``synth_matrix``) on the tensor cores in 3xTF32, reading the matrix as
   ``dense_operand`` lays it out, built once per (N, device).  It takes N
-  up to about 6000 on an H100 (16 frames of the source must fit in shared
+  up to about 5600 on an H100 (17 hops of the source must fit in shared
   memory); above that its launch fails and the wrapper raises.
 
 Bound on an H100 SXM at the flagship shape (batch 8, N = 512, 128 frames):

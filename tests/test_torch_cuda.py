@@ -120,7 +120,7 @@ def test_k1_wrapper_refuses_quarter_hop_on_card(cuda):
     assert all(n == 0 for n in K.LAUNCHES.values())
 
 
-def _k1_k2_against_float64(cuda, rng, n_fft, t, frames, kernel_names):
+def _k1_k2_against_float64(cuda, rng, n_fft, t, frames, kernel_names, batch=2):
     """K1 and K2 on the card against their plain versions in float64, at
     the bounds of the f32 parity tests, launching only ``kernel_names``.
     The signal is scaled by sqrt(512/N) so that a frame carries the same
@@ -130,22 +130,22 @@ def _k1_k2_against_float64(cuda, rng, n_fft, t, frames, kernel_names):
     mat, syn = K.spectro_matrix(n_fft, cuda), K.synth_matrix(n_fft, cuda)
     mat64 = K.spectro_matrix(n_fft, dtype=torch.float64)
     syn64 = K.synth_matrix(n_fft, dtype=torch.float64)
-    x = (rng.standard_normal((2, t)) * np.sqrt(512 / n_fft)).astype(np.float32)
+    x = (rng.standard_normal((batch, t)) * np.sqrt(512 / n_fft)).astype(np.float32)
     x64 = torch.from_numpy(x).double()
     K.reset_launch_counts()
     got = K.mdct_spectro(torch.from_numpy(x).to(cuda), mat, GAIN, 0.2, 0.0).cpu().double()
     ref = K.mdct_spectro_plain(x64, mat64, GAIN, 0.2, 0.0)
-    assert got.shape == ref.shape == (2, K.n_frames(t, 2 * m_pts, m_pts), m_pts)
+    assert got.shape == ref.shape == (batch, K.n_frames(t, 2 * m_pts, m_pts), m_pts)
     assert float((got - ref).abs().max()) <= 5e-4
     got = K.mdct_spectro(torch.from_numpy(x).to(cuda), mat).cpu().double()
     assert float((got - K.mdct_spectro_plain(x64, mat64)).abs().max()) <= 2e-3
-    y = rng.uniform(-1, 1, (2, frames, m_pts)).astype(np.float32)
+    y = rng.uniform(-1, 1, (batch, frames, m_pts)).astype(np.float32)
     y64 = torch.from_numpy(y).double()
     got = K.imdct_audio(torch.from_numpy(y).to(cuda), syn, GAIN, 5.0, 0.0).cpu().double()
     ref = K.imdct_audio_plain(y64, syn64, GAIN, 5.0, 0.0)
-    assert got.shape == ref.shape == (2, (frames - 1) * m_pts)
+    assert got.shape == ref.shape == (batch, (frames - 1) * m_pts)
     assert float((got - ref).abs().max()) <= 1e-3
-    s = rng.standard_normal((2, frames, m_pts)).astype(np.float32)
+    s = rng.standard_normal((batch, frames, m_pts)).astype(np.float32)
     got = K.imdct_audio(torch.from_numpy(s).to(cuda), syn).cpu().double()
     ref = K.imdct_audio_plain(torch.from_numpy(s).double(), syn64)
     assert float((got - ref).abs().max()) <= 1e-4
@@ -166,11 +166,38 @@ def test_fft_kernels_match_float64_plain(cuda, n_fft):
 
 
 @pytest.mark.cuda
-def test_dense_kernels_match_float64_plain(cuda):
-    # N = 480 (hop 240) is not a power of two: the wrappers pick the dense form
-    rng = np.random.default_rng(480)
-    _k1_k2_against_float64(cuda, rng, 480, 24000, 100,
-                           ("mdct_spectro_dense", "imdct_audio_dense"))
+@pytest.mark.parametrize("n_fft,t,frames,batch", [(480, 24000, 100, 2), (960, 60960, 128, 8),
+                                                  (200, 24000, 100, 2)])
+def test_dense_kernels_match_float64_plain(cuda, n_fft, t, frames, batch):
+    # N = 480, 960 (hops of 10 ms at 24 and 48 kHz) and 200 (N/2 not a
+    # multiple of 8) are not powers of two: the wrappers pick the dense form
+    rng = np.random.default_rng(n_fft)
+    _k1_k2_against_float64(cuda, rng, n_fft, t, frames,
+                           ("mdct_spectro_dense", "imdct_audio_dense"), batch)
+
+
+@pytest.mark.cuda
+def test_dense_form_forced_at_n512_matches_fft_form(cuda):
+    """At n_fft 512, batch 8, the dense form (forced) against the FFT form
+    the wrappers pick there, on the same inputs: K1 within 5e-4 normalized,
+    K2 within 1e-3, the float32 parity bounds, each form launched once.
+    K1's input is noise at sigma 0.25 (audio within [-1, 1]), as
+    ``chip_smoke.py`` holds a float32 kernel to another float32 version:
+    on unit-variance noise each is itself up to ~3e-4 from float64."""
+    rng = np.random.default_rng(512)
+    x = torch.from_numpy((0.25 * rng.standard_normal((8, 32512))).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.uniform(-1, 1, (8, 128, 256)).astype(np.float32)).to(cuda)
+    mat, syn = K.spectro_matrix(512, cuda), K.synth_matrix(512, cuda)
+    K.reset_launch_counts()
+    fft1, dense1 = (K.mdct_spectro(x, mat, GAIN, 0.2, 0.0),
+                    K.mdct_spectro_dense(x, mat, GAIN, 0.2, 0.0))
+    fft2, dense2 = (K.imdct_audio(y, syn, GAIN, 5.0, 0.0),
+                    K.imdct_audio_dense(y, syn, GAIN, 5.0, 0.0))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"mdct_spectro": 1, "imdct_audio": 1,
+                          "mdct_spectro_dense": 1, "imdct_audio_dense": 1}
+    assert float((dense1 - fft1).abs().max()) <= 5e-4
+    assert float((dense2 - fft2).abs().max()) <= 1e-3
 
 
 @pytest.mark.cuda

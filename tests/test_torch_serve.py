@@ -101,6 +101,41 @@ def test_api_upsample_matches_jax(rng, rate, is_lr_input):
     np.testing.assert_allclose(got, ref, atol=2e-3 * float(np.abs(ref).max()))
 
 
+# n_fft 480 / hop 240: a 10 ms hop at 24 kHz, not a power of two (the
+# card's dense K1/K2); 127 hops a segment give the generator 128 frames
+SPECTRAL_480 = dict(n_fft=480, hop_length=240, win_length=480, segment_length=127 * 240)
+GEN_480 = dict(GEN, ngf=8, dim_head_g=8, input_size=(128, 240))
+OPT_480 = dict(OPT, **SPECTRAL_480, ngf=8, dim_head_g=8)
+
+
+def test_api_upsample_at_n480_matches_jax_pallas(rng):
+    """The serving chain at n_fft 480 (narrow width: ngf 8, 2 heads of 8),
+    through the whole API, against the JAX package with its Pallas kernels
+    in interpret mode (``use_fused=True, fused_interpret=True``), on the
+    same weights (``state_dict_from_jax``): the waveform within 2e-3 of its
+    largest value, the bound of ``test_api_upsample_matches_jax``."""
+    flax_g = JLocalEnhancer(**GEN_480)
+    params, stats = _flax_vars(flax_g, np.zeros((1, 2, 128, 240), np.float32), rng,
+                               train=False)
+    g_vars = {"params": params, "batch_stats": stats}
+    seg = SPECTRAL_480["segment_length"]
+    jt = JSpectralTransform(JSpectralConfig(**SPECTRAL_480), use_fused=True,
+                            fused_interpret=True)
+    assert jt.use_fused
+    j_model = japi.Model(flax_g, None, jt, None, None,
+                         j_build_inference_fn(flax_g, jt, out_length=seg))
+    n = int(1.3 * seg * 16000 / 48000)
+    clip = _clip(rng, n, 16000)
+    ref = japi.upsample(clip, 16000, g_vars, j_model, is_lr_input=True, gen_overlap=256,
+                        batch_size=2)
+
+    model = tapi.create_model(OPT_480, device="cpu", state_dict=state_dict_from_jax(params, stats))
+    assert model.transform.fused
+    got = tapi.upsample(clip, 16000, model, is_lr_input=True, gen_overlap=256, batch_size=2)
+    assert got.shape == ref.shape == (n * 3,)
+    np.testing.assert_allclose(got, ref, atol=2e-3 * float(np.abs(ref).max()))
+
+
 @pytest.mark.parametrize("orig,new", [(16000, 48000), (48000, 16000), (44100, 48000)])
 def test_resample_matches_jax(rng, orig, new):
     k, w = tres.sinc_resample_kernel(orig, new)
