@@ -156,7 +156,28 @@ Phases (none catches an exception; any failure exits non-zero):
      on the CPU (2e-3 of its largest value, phase 6's bound), the 3.7 s
      request timed in each precision (median of 5); (b) 3 bf16
      Adam steps at batch 20: finite losses, G and D move,
-     ``mdct_spectro_dense`` twice a step and nothing else.
+     ``mdct_spectro_dense`` twice a step and nothing else;
+ 14. the serving export (``export_cli``, K1 and K2 as the registered
+     operators ``mdctgan::mdct_spectro``/``imdct_audio`` in the program),
+     each path with the counts set to 0 just before it: (a) the flagship
+     at full width and depth from a reference-layout ``.pth`` of seeded
+     weights, exported on the card at batch 8 in float32 and with
+     ``--fp16`` (seconds and bytes); a fresh process that imports torch
+     and the op module and nothing else of the port (no model code, no
+     JAX) serves the segments of three requests (1.0, 2.2, 3.7 s) through
+     each program, one FFT-form K1 and K2 a call and the dense forms
+     never, its SR held to ``model.inference`` on the card at phase 6's
+     bound (the difference read: bit for bit expected); the float32
+     program against the port on the CPU at phase 6's bound; the same
+     program called with TF32 allowed and without ``serve_export``'s
+     scope must move (its distance from the CPU read beside that bound);
+     each program's operator nodes (read); each program's call
+     against ``model.inference`` at batch 8, alternated, by CUDA events
+     (median of 20 after 3 warm-ups); (b) the n_fft-480 program (hop
+     240, segment 30480) at a reduced depth: ``mdct_spectro_dense`` and
+     ``imdct_audio_dense`` once each a call, through the operators, the
+     SR held to ``model.inference``; (c) the batch-8 program called at
+     batch 4 and 16 raises.
 Every result is one JSON line; a ``kernels`` line sums the kernels up
 (``launches`` on the serving path, ``<path>_launches`` on each other path:
 ``serving_fp16``, ``train`` (float32), ``train_fp16``, ``generate`` and
@@ -164,7 +185,9 @@ Every result is one JSON line; a ``kernels`` line sums the kernels up
 ``local_attn_train_fp16`` and ``two_enhancers_serving``, phase 12's
 ``dp_multihost_train_cli``, ``dp_two_ranks_train`` (both ranks) and
 ``dp_replicas_serving`` (both replicas), phase 13's ``n960_serving``,
-``n960_serving_fp16`` and ``n960_train_fp16``, and under ``paths`` each
+``n960_serving_fp16`` and ``n960_train_fp16``, phase 14's
+``export_serving`` and ``export_serving_fp16`` (the fresh process's) and
+``export_n480``, and under ``paths`` each
 path's n_fft, batch, launches and the kernel's numbers there; ``launches``
 adds phase 6's serving to phase 13's, and the numbers are at batch 8 and
 n_fft 512 for the FFT forms, 960 for the dense forms) and the last line is
@@ -175,6 +198,7 @@ exits 2.
 
 from __future__ import annotations
 
+import collections
 import csv
 import ctypes
 import json
@@ -270,6 +294,38 @@ DP_STEP2_BOUNDS = {"f32": 1e-3, "bf16": 2.0 ** -7}
 DENSE_GEOMETRY = dict(n_fft=960, hop_length=480, win_length=960, segment_length=127 * 480)
 DENSE_STEPS = 3
 DENSE_TIMED_REQUESTS = 5
+# Phase 14: the program's batch (--export_batch), its timed calls (after 3
+# warm-ups), and the n_fft-480 program (hop 240, 127 hops a segment: the
+# dense forms' path) at a reduced depth
+EXPORT_BATCH = MAIN_BATCH
+EXPORT_TIMED = 20
+EXPORT_N480 = ["--n_fft", "480", "--hop_length", "240", "--win_length", "480",
+               "--segment_length", str(127 * 240),
+               "--n_blocks_global", "1", "--n_blocks_attn_g", "1", "--n_blocks_local", "1"]
+# The fresh process of 14a: it imports torch and the op module (through
+# serve_export) and nothing else of the port, serves each program on its
+# batches, and reports the launches; argv[1] is a JSON list of [label,
+# program, batches .npy, output .npy].
+SERVE_CHILD = """
+import json, sys
+import numpy as np, torch
+from mdctgan_tpu_torch.serve_export import load
+from mdctgan_tpu_torch.ops import mdct_kernels as K
+report = {}
+for label, program, src, dst in json.loads(sys.argv[1]):
+    serve = load(program)
+    batches = np.load(src)
+    K.reset_launch_counts()
+    np.save(dst, np.stack([serve(torch.from_numpy(b).cuda()).cpu().numpy() for b in batches]))
+    report[label] = {"calls": len(batches), "launches": dict(K.LAUNCHES)}
+banned = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "mdctgan_tpu"))
+models = sorted(m for m in sys.modules if m.startswith("mdctgan_tpu_torch.models"))
+if banned or models:
+    raise SystemExit(f"the serving process imported {banned + models}")
+report["port_modules"] = sorted(m for m in sys.modules if m.startswith("mdctgan_tpu_torch"))
+print(json.dumps(report))
+"""
 # Phases 3-4: the dense form at each N (not a power of two: 480 and 960, and
 # 200, whose N/2 is not a multiple of 8) and batch, with its frames a row
 DENSE_CHECKS = ((480, 24000, 100), (960, 60960, 128), (200, 24000, 100))
@@ -1936,6 +1992,180 @@ def dense_phase(rng, smi: str, dev: torch.device) -> dict:
     return out
 
 
+def export_phase(rng, smi: str, dev: torch.device) -> dict:
+    """Phase 14: the serving export (``export_cli``) of the flagship at full
+    width and depth.  (a) a reference-layout ``.pth`` of seeded weights,
+    exported on the card at batch 8 in float32 and ``--fp16`` (seconds,
+    bytes); a fresh process importing only torch and the op module
+    (``SERVE_CHILD``) serves phase 6's three requests' segments through
+    each program, one FFT-form K1 and K2 a call, the dense forms never; its
+    SR against ``model.inference`` on the card (phase 6's bound; the
+    difference read); the float32 program against the port on the CPU at
+    phase 6's bound, and called with TF32 allowed and unscoped (it must
+    move; its distance from the CPU read); the program's call against ``model.inference``, alternated, by CUDA
+    events; (b) the n_fft-480 program at a reduced depth: the dense K1 and
+    K2 once each a call, through the operators; (c) a batch-8 program
+    called at batch 4 raises.  Returns each path's launches."""
+    from mdctgan_tpu_torch import api, export_cli, serve_export
+    from mdctgan_tpu_torch.data.dataset import AudioAppDataset
+    from mdctgan_tpu_torch.data.synthetic import speech_like
+    from mdctgan_tpu_torch.device import float32_policy
+    from mdctgan_tpu_torch.models.generator import build_generator
+    from mdctgan_tpu_torch.ops import mdct_kernels as K
+    from mdctgan_tpu_torch.ops.resample import resample
+    from mdctgan_tpu_torch.options import TrainOptions
+    from mdctgan_tpu_torch.train.import_torch import export_to_torch_keys, generator_entries_for
+    from mdctgan_tpu_torch.weights import random_jax_trees, state_dict_from_jax
+
+    t_phase = time.perf_counter()
+    out = {}
+    f32_flags = [a for a in GENERATE_FLAGS if a != "--fp16"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="export_", dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+
+        def write_pth(flags, name):
+            """Seeded weights for ``flags``' generator as a reference-layout
+            ``.pth`` in ``tmp/name``; returns the options, flags to export
+            from it, and the port's state dict."""
+            common = ["--checkpoints_dir", str(tmp / "out"), "--load_pretrain", str(tmp / name),
+                      "--export_batch", str(EXPORT_BATCH), "--gpu_ids", str(dev.index or 0)]
+            opt = TrainOptions().parse(flags + common, save=False)
+            gen = build_generator(opt)
+            state = state_dict_from_jax(*random_jax_trees(gen, rng))
+            (tmp / name).mkdir()
+            torch.save(export_to_torch_keys(state, generator_entries_for(gen)),
+                       tmp / name / "latest_net_G.pth")
+            return opt, common, state
+
+        def export(flags, label):
+            written = export_cli.main(flags + ["--export_path", str(tmp / f"{label}.pt2")])
+            emit({"phase": 14, "export": label, "export_s": written["export_s"],
+                  "bytes": written["bytes"], "device": written["device"], "card": smi})
+            return written["path"]
+
+        # 14a. the flagship in float32 and bf16 ----------------------------------
+        opt, common, state = write_pth(f32_flags, "pretrained")
+        programs = {"f32": export(f32_flags + common, "flagship_f32"),
+                    "bf16": export(GENERATE_FLAGS + common, "flagship_bf16")}
+        seg = opt.segment_length
+        batches, real = [], []
+        with torch.inference_mode(), float32_policy():
+            for seconds in GENERATE_SECONDS:  # phase 6's requests, as upsample cuts them
+                ds = AudioAppDataset(speech_like(rng, seconds), 16000, seg, 512)
+                lr = resample(torch.from_numpy(ds.raw_audio)[None].to(dev), 16000,
+                              opt.hr_sampling_rate)
+                segs = ds.segments_of(lr[0].cpu().numpy())
+                real.append(len(segs))
+                segs = np.concatenate([segs, np.zeros((-len(segs) % EXPORT_BATCH, seg))])
+                batches += list(segs.astype(np.float32).reshape(-1, EXPORT_BATCH, seg))
+        batches = np.stack(batches)
+        np.save(tmp / "lr.npy", batches)
+        jobs = [[label, path, str(tmp / "lr.npy"), str(tmp / f"sr_{label}.npy")]
+                for label, path in programs.items()]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", SERVE_CHILD, json.dumps(jobs)], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"14a: the serving process failed:\n{proc.stderr[-4000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        emit({"phase": 14, "serving_process": child, "process_s": time.perf_counter() - t0})
+        expected = {name: 0 for name in K.LAUNCHES}
+        expected["mdct_spectro"] = expected["imdct_audio"] = len(batches)
+        for label, path_name in (("f32", "export_serving"), ("bf16", "export_serving_fp16")):
+            out[path_name] = child[label]["launches"]
+            if out[path_name] != expected:
+                raise AssertionError(f"14a {label}: launches {out[path_name]}, "
+                                     f"expected {expected}")
+
+        x = torch.from_numpy(batches[0]).to(dev)  # the 1.0 s request's batch
+        cpu_model = api.create_model(opt, "cpu", state_dict=state)
+        ref_cpu = cpu_model.inference(x[:real[0]].cpu())[1].numpy()
+        del cpu_model
+        scale_cpu = float(np.abs(ref_cpu).max())
+        for label, run_opt in (("f32", opt), ("bf16", dict(vars(opt), fp16=True))):
+            model = api.create_model(run_opt, dev, state_dict=state)
+            ref = np.stack([model.inference(torch.from_numpy(b).to(dev))[1].cpu().numpy()
+                            for b in batches])
+            got = np.load(tmp / f"sr_{label}.npy")
+            diff = float(np.abs(got - ref).max())
+            check(f"14a: the {label} program in a fresh process vs model.inference on the card",
+                  diff, 2e-3 * float(np.abs(ref).max()), bit_for_bit=diff == 0.0,
+                  batches=len(batches))
+            serve = serve_export.load(programs[label])
+            program = torch.export.load(programs[label])
+            # the graph's operator nodes: what the host dispatches a call
+            nodes = collections.Counter(str(n.target) for n in program.graph.nodes
+                                        if n.op == "call_function")
+            emit({"phase": 14, "program": label, "operator_nodes": sum(nodes.values()),
+                  "top": nodes.most_common(6)})
+            if label == "f32":
+                check("14a: the f32 program on the card vs the port on the CPU",
+                      float(np.abs(serve(x)[:real[0]].cpu().numpy() - ref_cpu).max()),
+                      2e-3 * scale_cpu, rows=real[0], max_abs_ref=scale_cpu)
+                # The program carries no precision switch: its convolutions
+                # take the process's, and serve_export.load scopes TF32 off.
+                # Called with TF32 allowed and no scope it must move; its
+                # distance from the CPU is read beside phase 6's bound, which
+                # it stays inside at these weights (PERF.md §6).
+                with torch.inference_mode(), float32_policy(allow_tf32=True):
+                    tf32 = program.module()(x)
+                moved = max_err(tf32, serve(x))
+                tf32_err = float(np.abs(tf32[:real[0]].cpu().numpy() - ref_cpu).max())
+                emit({"control": "14a: the f32 program with TF32 allowed, unscoped",
+                      "max_abs_diff_from_scoped": moved, "max_abs_err_vs_cpu": tf32_err,
+                      "bound": 2e-3 * scale_cpu, "share_of_bound": tf32_err / (2e-3 * scale_cpu)})
+                if not moved > 0.0:
+                    raise AssertionError("14a: TF32 allowed in the process did not reach the "
+                                         "program's convolutions")
+                # 14c. another batch raises
+                for bad in (x[: EXPORT_BATCH // 2], torch.cat([x, x])):
+                    try:
+                        serve(bad)
+                    except (AssertionError, RuntimeError) as e:
+                        emit({"phase": 14, "batch_guard": bad.shape[0], "raised": type(e).__name__})
+                    else:
+                        raise AssertionError(f"14c: a batch-{EXPORT_BATCH} program served "
+                                             f"batch {bad.shape[0]}")
+            times = {"program": [], "model": []}
+            calls = {"program": lambda: serve(x), "model": lambda: model.inference(x)}
+            for i in range(3 + EXPORT_TIMED):
+                for name in (("program", "model") if i % 2 else ("model", "program")):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    calls[name]()
+                    end.record()
+                    end.synchronize()
+                    if i >= 3:
+                        times[name].append(start.elapsed_time(end))
+            emit({"timing": {"name": "exported_program_call", "precision": label, "card": smi,
+                             "batch": EXPORT_BATCH, "ms": statistics.median(times["program"]),
+                             "model_inference_ms": statistics.median(times["model"])}})
+            del model, serve, program
+
+        # 14b. n_fft 480 (the dense forms) at a reduced depth -------------------------
+        flags480 = f32_flags + EXPORT_N480
+        opt480, common480, state480 = write_pth(flags480, "pretrained_n480")
+        serve = serve_export.load(export(flags480 + common480, "n480_f32"))
+        x = torch.from_numpy((0.05 * rng.standard_normal(
+            (EXPORT_BATCH, opt480.segment_length))).astype(np.float32)).to(dev)
+        K.reset_launch_counts()
+        got = serve(x)
+        out["export_n480"] = dict(K.LAUNCHES)
+        expected = {name: 0 for name in K.LAUNCHES}
+        expected["mdct_spectro_dense"] = expected["imdct_audio_dense"] = 1
+        emit({"phase": 14, "path": "export_n480", "launches": out["export_n480"],
+              "expected": expected})
+        if out["export_n480"] != expected:
+            raise AssertionError(f"14b launches {out['export_n480']}, expected {expected}")
+        ref = api.create_model(opt480, dev, state_dict=state480).inference(x)[1]
+        check("14b: the n_fft-480 program vs model.inference on the card", max_err(got, ref),
+              2e-3 * float(ref.abs().max()))
+    emit({"phase": 14, "phase_s": time.perf_counter() - t_phase, "card": smi})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2318,6 +2548,9 @@ def drive() -> int:
     # 13. the flagship at n_fft 960: the dense forms' path ------------------------
     dense_launches = dense_phase(rng, smi, dev)
 
+    # 14. the serving export ----------------------------------------------------
+    export_launches = export_phase(rng, smi, dev)
+
     replaces = {
         "mdct_spectro": "mdctgan_tpu/ops/pallas_mdct.py:80",
         "imdct_audio": "mdctgan_tpu/ops/pallas_mdct.py:185",
@@ -2326,12 +2559,16 @@ def drive() -> int:
     path_launches = {"serving": launches, "serving_fp16": launches16,
                      "train": train_launches, "train_fp16": train16_launches,
                      "generate": generate_launches, "train_cli": train_cli_launches,
-                     **modes_launches, **parallel_launches, **dense_launches}
+                     **modes_launches, **parallel_launches, **dense_launches,
+                     **export_launches}
     # each path's n_fft and batch: phase 13's at n_fft 960, the others' at 512
     path_shapes = {**{path: (512, b) for path, b in PATH_BATCHES.items()},
                    "n960_serving": (DENSE_GEOMETRY["n_fft"], MAIN_BATCH),
                    "n960_serving_fp16": (DENSE_GEOMETRY["n_fft"], MAIN_BATCH),
-                   "n960_train_fp16": (DENSE_GEOMETRY["n_fft"], TRAIN_BATCH)}
+                   "n960_train_fp16": (DENSE_GEOMETRY["n_fft"], TRAIN_BATCH),
+                   "export_serving": (512, EXPORT_BATCH),
+                   "export_serving_fp16": (512, EXPORT_BATCH),
+                   "export_n480": (480, EXPORT_BATCH)}
     # the numbers at the kernel's own main path: serving at batch 8, at n_fft
     # 512 for the FFT forms, 960 for the dense forms
     main_n = {"mdct_spectro": 512, "imdct_audio": 512,

@@ -38,6 +38,7 @@ package's ``_shard_mapped``, which runs the Pallas kernels per shard.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Dict, Optional, Tuple, Union
@@ -158,6 +159,17 @@ class SpectralTransform:
                            device, dtype)
         # K1's and K2's operands where they serve (win = n_fft)
         self.spectro_mat, self.synth_mat = self.mdct.kernel, self.imdct.kernel
+
+    def with_matrices(self, spectro_mat: torch.Tensor,
+                      synth_mat: torch.Tensor) -> "SpectralTransform":
+        """A copy of this transform that reads ``spectro_mat`` and
+        ``synth_mat`` (a module's buffers: ``train/step.py``
+        ``InferenceModule``) in both forms."""
+        out = copy.copy(self)
+        out.mdct, out.imdct = copy.copy(self.mdct), copy.copy(self.imdct)
+        out.mdct.kernel = out.spectro_mat = spectro_mat
+        out.imdct.kernel = out.synth_mat = synth_mat
+        return out
 
     def norm_param(self) -> Dict[str, float]:
         """The fixed bounds of ``abs_norm``."""

@@ -32,10 +32,14 @@ by bytes.  The dense product is 2*8*128*512*256 = 268 MFLOP; in 3xTF32
 that is three TF32 products, 805 MFLOP, 1.6 us at the 495 TFLOP/s TF32
 rate: it cannot reach the bound and serves only the other N.
 
-A wrapper given a CPU tensor runs the plain PyTorch version; given a CUDA
-tensor it launches a kernel (adding one to its count in ``LAUNCHES``) or
-raises.  Both take hop = win/2 = n_fft/2, centred, only, as the Pallas
-kernels did: ``mdct_spectro`` and ``imdct_audio`` raise
+K1 and K2 are PyTorch operators, ``torch.ops.mdctgan.mdct_spectro`` and
+``torch.ops.mdctgan.imdct_audio`` (registered when this module is
+imported; nothing is built then), so that ``torch.export`` traces them as
+nodes of a graph (``export_cli.py``) and a loaded program launches them.
+The wrappers ``mdct_spectro`` and ``imdct_audio`` call them: a CPU tensor
+runs the plain PyTorch version; a CUDA tensor launches a kernel (adding one
+to its count in ``LAUNCHES``) or raises.  Both take hop = win/2 = n_fft/2,
+centred, only, as the Pallas kernels did, and raise
 ``NotImplementedError`` for any other framing a caller names.  The
 configurations they cannot serve run the matmul form (``ops/mdct.py``
 ``MDCT``/``IMDCT``), chosen by ``ops/features.py`` from the configuration
@@ -187,17 +191,49 @@ def _device_tables(n_fft: int, device: torch.device) -> torch.Tensor:
     return fft_tables(n_fft, device)
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {dev}")
+def _check_inputs(name: str, *tensors: torch.Tensor) -> None:
+    """What the ops take: tensors of one dtype on one device; on the card
+    (the kernels) contiguous float32 ones.  The plain version runs in any
+    floating dtype on the CPU."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
     for t in tensors:
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name}: inputs on {dev} in {dtype} and on {t.device} in {t.dtype}")
+        if dev.type != "cpu" and (t.dtype != torch.float32 or not t.is_contiguous()):
             raise ValueError(
                 f"{name}: every input must be a contiguous float32 tensor on "
-                f"{dev}; got {t.dtype} on {t.device}"
-                + ("" if t.is_contiguous() else " (not contiguous)")
+                f"{dev}; got {t.dtype}" + ("" if t.is_contiguous() else " (not contiguous)")
             )
+
+
+def _k1_shape(name, signal, mat, hop_length, win_length):
+    """K1's inputs checked as each implementation checks them -> (B, T, N, F)."""
+    n_fft = mat.shape[0]
+    check_geometry(n_fft, hop_length, win_length)
+    _check_inputs(name, signal, mat)
+    if signal.dim() != 2 or mat.shape != (n_fft, n_fft // 2) or n_fft % 2:
+        raise ValueError(
+            f"{name}: expected (B, T) and (N, N/2), got "
+            f"{tuple(signal.shape)} and {tuple(mat.shape)}"
+        )
+    b, t = signal.shape
+    return b, t, n_fft, n_frames(t, n_fft, n_fft // 2)
+
+
+def _k2_shape(name, spec, synth, hop_length, win_length):
+    """K2's inputs checked as each implementation checks them -> (B, F, K)."""
+    k = synth.shape[0]
+    check_geometry(2 * k, hop_length, win_length)
+    _check_inputs(name, spec, synth)
+    if spec.dim() != 3 or spec.shape[-1] != k or synth.shape != (k, 2 * k):
+        raise ValueError(
+            f"{name}: expected (B, F, K) and (K, 2K), got "
+            f"{tuple(spec.shape)} and {tuple(synth.shape)}"
+        )
+    b, f, _ = spec.shape
+    if f < 2:
+        raise ValueError(f"{name}: needs at least 2 frames, got {f}")
+    return b, f, k
 
 
 def _launch(name: str, src: torch.Tensor, operand: torch.Tensor,
@@ -212,16 +248,15 @@ def _launch(name: str, src: torch.Tensor, operand: torch.Tensor,
     return out
 
 
-def _k1(name, signal, mat, gain, scale, shift):
-    _check_cuda(name, signal, mat)
-    n_fft = mat.shape[0]
-    if signal.dim() != 2 or mat.shape != (n_fft, n_fft // 2) or n_fft % 2:
-        raise ValueError(
-            f"{name}: expected (B, T) and (N, N/2), got "
-            f"{tuple(signal.shape)} and {tuple(mat.shape)}"
-        )
-    b, t = signal.shape
-    f = n_frames(t, n_fft, n_fft // 2)
+def _on_card(name: str, src: torch.Tensor) -> None:
+    if src.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {src.device}")
+
+
+def _k1(name, signal, mat, gain, scale, shift, hop_length=None, win_length=None):
+    n = mat.shape[0]
+    b, t, n_fft, f = _k1_shape(name, signal, mat, hop_length or n // 2, win_length or n)
+    _on_card(name, signal)
     out = torch.empty((b, f, n_fft // 2), device=signal.device, dtype=torch.float32)
     operand = (_dense_operand("mdct_spectro", n_fft, signal.device) if name.endswith("_dense")
                else _device_tables(n_fft, signal.device))
@@ -229,17 +264,10 @@ def _k1(name, signal, mat, gain, scale, shift):
                    float(gain), float(scale), float(shift))
 
 
-def _k2(name, spec, synth, gain, scale, shift):
-    _check_cuda(name, spec, synth)
+def _k2(name, spec, synth, gain, scale, shift, hop_length=None, win_length=None):
     k = synth.shape[0]
-    if spec.dim() != 3 or spec.shape[-1] != k or synth.shape != (k, 2 * k):
-        raise ValueError(
-            f"{name}: expected (B, F, K) and (K, 2K), got "
-            f"{tuple(spec.shape)} and {tuple(synth.shape)}"
-        )
-    b, f, _ = spec.shape
-    if f < 2:
-        raise ValueError(f"{name}: needs at least 2 frames, got {f}")
+    b, f, k = _k2_shape(name, spec, synth, hop_length or k, win_length or 2 * k)
+    _on_card(name, spec)
     out = torch.empty((b, (f - 1) * k), device=spec.device, dtype=torch.float32)
     operand = (_dense_operand("imdct_audio", 2 * k, spec.device) if name.endswith("_dense")
                else _device_tables(2 * k, spec.device))
@@ -247,22 +275,89 @@ def _k2(name, spec, synth, gain, scale, shift):
                    float(gain), float(scale), float(shift))
 
 
+# --------------------------------------------------------------------------
+# the registered operators
+# --------------------------------------------------------------------------
+#
+# ``mdctgan::mdct_spectro`` and ``mdctgan::imdct_audio``: the dispatcher
+# runs the plain version for CPU tensors, the kernel that ``kernel_for``
+# names for CUDA tensors, and the shape function for the fake tensors of
+# ``torch.export`` (which have no storage: it touches no pointer and no
+# cached table).  All three check the inputs alike, so an export that the
+# card would refuse fails when it is made.  No autograd is registered: both
+# kernels are forward-only, as in JAX; a backward through them raises.
+
+_K1_SCHEMA = ("(Tensor signal, Tensor mat, float gain, float scale, float shift, "
+              "int hop_length, int win_length) -> Tensor")
+_K2_SCHEMA = ("(Tensor spec, Tensor synth, float gain, float scale, float shift, "
+              "int hop_length, int win_length) -> Tensor")
+
+
+def _mdct_spectro_cpu(signal, mat, gain, scale, shift, hop_length, win_length):
+    _k1_shape("mdct_spectro", signal, mat, hop_length, win_length)
+    return mdct_spectro_plain(signal, mat, gain, scale, shift)
+
+
+def _imdct_audio_cpu(spec, synth, gain, scale, shift, hop_length, win_length):
+    _k2_shape("imdct_audio", spec, synth, hop_length, win_length)
+    return imdct_audio_plain(spec, synth, gain, scale, shift)
+
+
+mdct_spectro_op = torch.library.custom_op(
+    "mdctgan::mdct_spectro", _mdct_spectro_cpu, mutates_args=(), device_types="cpu",
+    schema=_K1_SCHEMA)
+imdct_audio_op = torch.library.custom_op(
+    "mdctgan::imdct_audio", _imdct_audio_cpu, mutates_args=(), device_types="cpu",
+    schema=_K2_SCHEMA)
+
+
+@mdct_spectro_op.register_kernel("cuda")
+def _mdct_spectro_cuda(signal, mat, gain, scale, shift, hop_length, win_length):
+    return _k1(kernel_for("mdct_spectro", mat.shape[0]), signal, mat, gain, scale, shift,
+               hop_length, win_length)
+
+
+@imdct_audio_op.register_kernel("cuda")
+def _imdct_audio_cuda(spec, synth, gain, scale, shift, hop_length, win_length):
+    return _k2(kernel_for("imdct_audio", 2 * synth.shape[0]), spec, synth, gain, scale, shift,
+               hop_length, win_length)
+
+
+@mdct_spectro_op.register_fake
+def _mdct_spectro_fake(signal, mat, gain, scale, shift, hop_length, win_length):
+    b, _, n_fft, f = _k1_shape("mdct_spectro", signal, mat, hop_length, win_length)
+    return signal.new_empty((b, f, n_fft // 2))
+
+
+@imdct_audio_op.register_fake
+def _imdct_audio_fake(spec, synth, gain, scale, shift, hop_length, win_length):
+    b, f, k = _k2_shape("imdct_audio", spec, synth, hop_length, win_length)
+    return spec.new_empty((b, (f - 1) * k))
+
+
+def _forward_only(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} is forward-only (no gradient, as in JAX): "
+                           "call it under torch.no_grad() or on a detached input")
+
+
 def mdct_spectro(signal, mat, gain=0.0, scale=1.0, shift=0.0,
                  hop_length=None, win_length=None):
     """K1: (B, T) float32 -> (B, F, N/2); ``mat`` from ``spectro_matrix``.
-    On CUDA: the form ``kernel_for`` names.  A caller's framing
-    (``hop_length``, ``win_length``; default N/2 and N) other than hop =
-    win/2 = N raises ``NotImplementedError`` on any device."""
+    Calls ``mdctgan::mdct_spectro``: on CUDA the form ``kernel_for`` names.
+    A caller's framing (``hop_length``, ``win_length``; default N/2 and N)
+    other than hop = win/2 = N raises ``NotImplementedError`` on any
+    device; an input that requires grad raises with grad enabled."""
     n_fft = mat.shape[0]
-    check_geometry(n_fft, hop_length or n_fft // 2, win_length or n_fft)
-    if signal.device.type == "cpu":
-        return mdct_spectro_plain(signal, mat, gain, scale, shift)
-    return _k1(kernel_for("mdct_spectro", n_fft), signal, mat, gain, scale, shift)
+    _forward_only("mdct_spectro", signal, mat)
+    return mdct_spectro_op(signal, mat, float(gain), float(scale), float(shift),
+                           hop_length or n_fft // 2, win_length or n_fft)
 
 
 def mdct_spectro_dense(signal, mat, gain=0.0, scale=1.0, shift=0.0):
     """K1's dense form at any even N (``mat`` gives N; the kernel reads
-    ``dense_operand`` of the float64 matrix)."""
+    ``dense_operand`` of the float64 matrix), launched directly, not through
+    the registered op."""
     if signal.device.type == "cpu":
         return mdct_spectro_plain(signal, mat, gain, scale, shift)
     return _k1("mdct_spectro_dense", signal, mat, gain, scale, shift)
@@ -271,18 +366,19 @@ def mdct_spectro_dense(signal, mat, gain=0.0, scale=1.0, shift=0.0):
 def imdct_audio(spec, synth, gain=0.0, scale=1.0, shift=0.0,
                 hop_length=None, win_length=None):
     """K2: (B, F, N/2) float32 -> (B, (F-1)*N/2); ``synth`` from
-    ``synth_matrix``.  On CUDA: the form ``kernel_for`` names.  A framing
-    other than hop = win/2 = N raises, as ``mdct_spectro``'s."""
+    ``synth_matrix``.  Calls ``mdctgan::imdct_audio``: on CUDA the form
+    ``kernel_for`` names.  A framing other than hop = win/2 = N raises, as
+    ``mdct_spectro``'s."""
     n_fft = 2 * synth.shape[0]
-    check_geometry(n_fft, hop_length or n_fft // 2, win_length or n_fft)
-    if spec.device.type == "cpu":
-        return imdct_audio_plain(spec, synth, gain, scale, shift)
-    return _k2(kernel_for("imdct_audio", n_fft), spec, synth, gain, scale, shift)
+    _forward_only("imdct_audio", spec, synth)
+    return imdct_audio_op(spec, synth, float(gain), float(scale), float(shift),
+                          hop_length or n_fft // 2, win_length or n_fft)
 
 
 def imdct_audio_dense(spec, synth, gain=0.0, scale=1.0, shift=0.0):
     """K2's dense form at any even N (``synth`` gives N; the kernel reads
-    ``dense_operand`` of the float64 matrix)."""
+    ``dense_operand`` of the float64 matrix), launched directly, not through
+    the registered op."""
     if spec.device.type == "cpu":
         return imdct_audio_plain(spec, synth, gain, scale, shift)
     return _k2("imdct_audio_dense", spec, synth, gain, scale, shift)

@@ -202,13 +202,10 @@ def build_train_step(
     return train_step
 
 
-def build_inference_fn(
-    generator: nn.Module,
-    transform: SpectralTransform,
-    out_length: Optional[int] = None,
-) -> Callable:
-    """``infer(lr_audio, phase=None, rows=None)``: LR waveform segments (B, T) -> (SR
-    spectro (B, C, F, K), SR waveform (B, out_length)).
+class InferenceModule(nn.Module):
+    """The serving chain as one module, ``forward(lr_audio, phase=None,
+    rows=None)``: LR waveform segments (B, T) -> (SR spectro (B, C, F, K),
+    SR waveform (B, out_length)).
 
     The LR spectrum (``lr_forward``: one K1 launch where the transform is
     ``fused``, masked under ``mask``) gets its abs channel and goes through
@@ -218,21 +215,54 @@ def build_inference_fn(
     ``fused``) with the LR sign.  ``phase``, a CPU ``torch.Generator``,
     draws the dB mode's pseudo-phase above the LR rows (ones without
     one); ``rows`` draws it at a global batch's shape (``ops/features.py``),
-    for one replica's share of a batch."""
-    cfg = transform.cfg
+    for one replica's share of a batch.
 
-    @torch.inference_mode()
-    @float32_policy()
-    def infer(lr_audio: torch.Tensor, phase: Optional[torch.Generator] = None,
-              rows: Optional[Tuple[int, int]] = None):
+    The transform's matrices are the module's buffers (``spectro_mat``,
+    ``synth_mat``), so ``torch.export`` (``export_cli.py``) keeps them as the
+    program's own state beside the generator's weights: where the buffers
+    are no longer the transform's own tensors (export puts its own in their
+    place), a call reads them through ``SpectralTransform.with_matrices``;
+    otherwise it runs the transform as given (which may be a stand-in, such
+    as ``train/grad_truth.py``'s ``SharedSpectra``).  ``build_inference_fn``
+    runs the same module."""
+
+    def __init__(self, generator: nn.Module, transform: SpectralTransform,
+                 out_length: Optional[int] = None):
+        super().__init__()
+        self.generator, self.transform, self.out_length = generator, transform, out_length
+        self.register_buffer("spectro_mat", transform.spectro_mat)
+        self.register_buffer("synth_mat", transform.synth_mat)
+
+    def forward(self, lr_audio: torch.Tensor, phase: Optional[torch.Generator] = None,
+                rows: Optional[Tuple[int, int]] = None):
+        transform = self.transform
+        if self.spectro_mat is not transform.spectro_mat:  # export's own state
+            transform = transform.with_matrices(self.spectro_mat, self.synth_mat)
+        cfg = transform.cfg
         lr_spec, lr_pha, lr_np = transform.lr_forward(lr_audio)
-        sr = generator(transform.g_input(lr_spec))
+        sr = self.generator(transform.g_input(lr_spec))
         if cfg.fit_residual:
             lr_part = int(sr.shape[-1] / cfg.up_ratio)
             sr[..., :lr_part] *= 1e-3
             sr = sr + lr_spec
         sr_audio = transform.to_audio(sr, lr_np, lr_pha, generator=phase,
-                                      out_length=out_length, rows=rows)
+                                      out_length=self.out_length, rows=rows)
         return sr, sr_audio
+
+
+def build_inference_fn(
+    generator: nn.Module,
+    transform: SpectralTransform,
+    out_length: Optional[int] = None,
+) -> Callable:
+    """``infer(lr_audio, phase=None, rows=None)``: ``InferenceModule``'s
+    forward under ``torch.inference_mode()`` and the float32 policy."""
+    module = InferenceModule(generator, transform, out_length)
+
+    @torch.inference_mode()
+    @float32_policy()
+    def infer(lr_audio: torch.Tensor, phase: Optional[torch.Generator] = None,
+              rows: Optional[Tuple[int, int]] = None):
+        return module(lr_audio, phase, rows)
 
     return infer

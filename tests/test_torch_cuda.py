@@ -24,7 +24,7 @@ from mdctgan_tpu_torch.options import TrainOptions, spectral_config_from_opt
 from mdctgan_tpu_torch.train.import_torch import export_to_torch_keys, generator_entries_for
 from mdctgan_tpu_torch.train.schedule import OptimizerSpec
 from mdctgan_tpu_torch.train.state import create_train_state
-from mdctgan_tpu_torch.train.step import build_train_step
+from mdctgan_tpu_torch.train.step import build_inference_fn, build_train_step
 from mdctgan_tpu_torch.weights import random_jax_trees, state_dict_from_jax
 
 GAIN = 1000.0
@@ -389,3 +389,43 @@ def test_small_train_cli_on_card_matches_cpu(cuda, tmp_path):
         "mdct_spectro_dense": 0, "imdct_audio_dense": 0}
     for k, ref in cpu["losses"][0].items():
         assert card["losses"][0][k] == pytest.approx(ref, rel=1e-3), k
+
+
+@pytest.mark.cuda
+def test_small_export_on_card_launches_k1_and_k2(cuda, tmp_path):
+    """``export_cli`` on the card at small geometry (``netG local``, whose
+    coarse branch is named ``global``), loaded by ``serve_export.load``:
+    one K1 and one K2 launch a call, the FFT forms, through the registered
+    operators, and the SR within 2e-3 of its largest value of the port's
+    inference on the CPU from the same ``.pth``."""
+    from mdctgan_tpu_torch import export_cli, serve_export
+
+    flags = ["--lr_sampling_rate", "16000", "--center", "--arcsinh_transform",
+             "--abs_spectro", "--abs_norm", "--norm_range", "-1", "1", "--fit_residual",
+             "--netG", "local", "--ngf", "4", "--n_downsample_global", "2",
+             "--n_blocks_global", "1", "--n_blocks_local", "1", "--n_blocks_attn_g", "1",
+             "--heads_g", "2", "--dim_head_g", "4", "--segment_length", "8128",
+             "--n_fft", "128", "--hop_length", "64", "--win_length", "128", "--bins", "128",
+             "--export_batch", "2", "--checkpoints_dir", str(tmp_path / "out"),
+             "--load_pretrain", str(tmp_path / "pre")]
+    rng = np.random.default_rng(4)
+    opt = TrainOptions().parse(flags, save=False)
+    gen = build_generator(opt)
+    state = state_dict_from_jax(*random_jax_trees(gen, rng))
+    (tmp_path / "pre").mkdir()
+    torch.save(export_to_torch_keys(state, generator_entries_for(gen)),
+               tmp_path / "pre" / "latest_net_G.pth")
+    written = export_cli.main(flags + ["--export_path", str(tmp_path / "m.pt2")])
+    assert written["device"] == "cuda:0"
+    serve = serve_export.load(written["path"])
+    x = torch.from_numpy((0.05 * rng.standard_normal((2, 8128))).astype(np.float32))
+    K.reset_launch_counts()
+    got = serve(x.to(cuda))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"mdct_spectro": 1, "imdct_audio": 1,
+                          "mdct_spectro_dense": 0, "imdct_audio_dense": 0}
+    gen.load_state_dict(state, strict=True)
+    _, ref = build_inference_fn(gen.eval(), SpectralTransform(spectral_config_from_opt(opt), "cpu"),
+                                out_length=8128)(x)
+    scale = float(ref.abs().max())
+    assert float((got.cpu() - ref).abs().max()) <= 2e-3 * scale
