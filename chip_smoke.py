@@ -15,7 +15,12 @@ Phases (none catches an exception; any failure exits non-zero):
      8 serving, 16 generate, 20 train, and phase 12's 10 a rank and 4 a
      replica) and at n_fft 64, 128 and 2048
      (batch 2), and the dense form at n_fft 480, 960 and 200 (N/2 not a
-     multiple of 8; T 24000, 60960, 24000) at batches 2, 8, 16 and 20.  The
+     multiple of 8; T 24000, 60960, 24000) and at the ends of its range:
+     4096 (T 16384, 9 frames a row), the largest N it takes on the card
+     (``dense_max_n``, 5568 on an H100; 9 frames) and 32, at batches 2, 8,
+     16 and 20; above the range, the ops refuse the next even N before any
+     launch, and ``SpectralTransform`` at n_fft 8192 runs the matmul form
+     (counted, no K1/K2 launch; its round trip within 1e-4).  The
      normalized f32 check runs on noise near full scale: on unit-variance
      noise the f32 plain version is itself ~5e-4 off float64.  For the
      dense form each normalized check also records its error against
@@ -38,7 +43,8 @@ Phases (none catches an exception; any failure exits non-zero):
      three requests again through a bf16 model, counted the same way;
   7. timings at each main path's batch (4, 8, 10, 16, 20) of each kernel (FFT
      and dense forms at n_fft 512; the dense forms at n_fft 960 at batches
-     8, 16 and 20), its plain version and a library matmul yardstick, with
+     8, 16 and 20 and at 4096 at batch 8), its plain version and a library
+     matmul yardstick, with
      the dense product's own bound in 3xTF32 (``dense_bound_ms``): as
      CUDA-graph replays timed by CUDA events (``ms``), as eager calls
      (``eager_ms``, which add the host's launch cost) and, for the
@@ -177,7 +183,24 @@ Phases (none catches an exception; any failure exits non-zero):
      240, segment 30480) at a reduced depth: ``mdct_spectro_dense`` and
      ``imdct_audio_dense`` once each a call, through the operators, the
      SR held to ``model.inference``; (c) the batch-8 program called at
-     batch 4 and 16 raises.
+     batch 4 and 16 raises; (d) the TF32 control that can fail: the f32
+     program exported from the same weights with the head damped 100x
+     (phase 9.1's), served scoped, within 8e-6 of the largest value of
+     the port's SR on the CPU, and called with TF32 allowed and unscoped,
+     past it;
+ 15. the port's counterparts of the JAX tools beside its package, each
+     path with the counts set to 0 just before it: (a)
+     ``verify_import_cli`` on a reference-layout ``.pth`` of seeded
+     flagship weights (head damped): with ``--forward`` on the card a
+     strict OK, its imported generator's logits against
+     ``api.create_model``'s at phase 5's bound (bit for bit expected);
+     ``python -m mdctgan_tpu_torch.verify_import_cli`` with
+     ``--n_blocks_global 3`` exits 1 naming the missing keys; (b)
+     ``dryrun.entry()``'s fn against ``model.inference`` of the same seeded
+     flagship, bit for bit, on the zero segment and on noise (K1 and K2
+     once a call); (c) ``dryrun.dryrun_multichip(2)``, two gloo ranks
+     sharing the card, held to one process as the JAX dry run holds its
+     mesh (losses 1e-4, SGD(1) updates 2e-4 of the tree's movement).
 Every result is one JSON line; a ``kernels`` line sums the kernels up
 (``launches`` on the serving path, ``<path>_launches`` on each other path:
 ``serving_fp16``, ``train`` (float32), ``train_fp16``, ``generate`` and
@@ -187,10 +210,15 @@ Every result is one JSON line; a ``kernels`` line sums the kernels up
 ``dp_replicas_serving`` (both replicas), phase 13's ``n960_serving``,
 ``n960_serving_fp16`` and ``n960_train_fp16``, phase 14's
 ``export_serving`` and ``export_serving_fp16`` (the fresh process's) and
-``export_n480``, and under ``paths`` each
+``export_n480``, phase 15's ``verify_import_forward``, ``entry`` and
+``dryrun_one_rank`` (the one process the ranks are held to), phase 4's
+``n8192_transform`` (no launch), and under
+``paths`` each
 path's n_fft, batch, launches and the kernel's numbers there; ``launches``
 adds phase 6's serving to phase 13's, and the numbers are at batch 8 and
-n_fft 512 for the FFT forms, 960 for the dense forms) and the last line is
+n_fft 512 for the FFT forms, 960 for the dense forms; ``checked_n`` the
+worst error of phases 3-4 at each N, and for the dense forms ``n4096``
+phase 7's numbers at N 4096) and the last line is
 ``{"ok": true, "device": {...}}``.  Without
 CUDA, or run outside a checkout of the repository, it prints no result and
 exits 2.
@@ -299,6 +327,13 @@ DENSE_TIMED_REQUESTS = 5
 # dense forms' path) at a reduced depth
 EXPORT_BATCH = MAIN_BATCH
 EXPORT_TIMED = 20
+# 14d: the output head that phase 9.1 damps 100x, and the damped program's
+# bound, of the CPU SR's largest value.  Phase 6's 2e-3 cannot see TF32
+# there: the damped generator adds ~1% to the LR band of the SR.  The
+# scoped program read 2.37e-6 of it and TF32 allowed 2.57e-5 (NVIDIA H100
+# 80GB HBM3, 700 W), so 8e-6 leaves each side a margin of ~3x.
+HEAD = "local_head.conv.weight"
+TF32_CONTROL_REL = 8e-6
 EXPORT_N480 = ["--n_fft", "480", "--hop_length", "240", "--win_length", "480",
                "--segment_length", str(127 * 240),
                "--n_blocks_global", "1", "--n_blocks_attn_g", "1", "--n_blocks_local", "1"]
@@ -327,11 +362,20 @@ report["port_modules"] = sorted(m for m in sys.modules if m.startswith("mdctgan_
 print(json.dumps(report))
 """
 # Phases 3-4: the dense form at each N (not a power of two: 480 and 960, and
-# 200, whose N/2 is not a multiple of 8) and batch, with its frames a row
-DENSE_CHECKS = ((480, 24000, 100), (960, 60960, 128), (200, 24000, 100))
+# 200, whose N/2 is not a multiple of 8; and the ends of its range: 4096, a
+# power of two above the FFT form's 2048, and 32, below its 64) and batch,
+# with its frames a row; then at the largest N it takes on the card
+# (``dense_max_n``, 5568 on an H100), 9 frames a row
+DENSE_CHECKS = ((480, 24000, 100), (960, 60960, 128), (200, 24000, 100),
+                (4096, 16384, 8), (32, 24000, 100))
 DENSE_BATCHES = (2, 8, 16, 20)
-# Phase 7: the batches at which it times the dense form at n_fft 960
+# Phase 4's end: an n_fft above the dense form's range, which the matmul
+# form serves
+ABOVE_N = 8192
+# Phase 7: the batches at which it times the dense form at n_fft 960, and
+# the batch at which it times N 4096
 DENSE_TIMED_BATCHES = (8, 16, 20)
+DENSE_RANGE_TIMED = (4096, (MAIN_BATCH,))
 # The dense form's error against the float64 plain version may be this many
 # times the float32 plain version's own on the same inputs.
 DENSE_FACTOR = 2.0
@@ -797,7 +841,7 @@ def generate_phase(rng, smi: str, dev: torch.device) -> dict:
                                    save=False)
         gen = build_generator(opt)
         state = state_dict_from_jax(*random_jax_trees(gen, rng))
-        state["local_head.conv.weight"] *= 0.01
+        state[HEAD] *= 0.01
         (tmp / "pretrained").mkdir()
         torch.save(export_to_torch_keys(state, generator_entries_for(gen)),
                    tmp / "pretrained" / "latest_net_G.pth")
@@ -1392,7 +1436,7 @@ def modes_phase(rng, smi: str, dev: torch.device, bf16_step: dict) -> dict:
             raise AssertionError(f"11c: {cfg_c.n_bins} frames, the generator takes {opt_c.bins}")
         gen_c = build_generator(opt_c)
         state_c = state_dict_from_jax(*random_jax_trees(gen_c, rng))
-        state_c["local_head.conv.weight"] *= 0.01
+        state_c[HEAD] *= 0.01
         (tmp / "pretrained").mkdir()
         torch.save(export_to_torch_keys(state_c, generator_entries_for(gen_c)),
                    tmp / "pretrained" / "latest_net_G.pth")
@@ -2005,7 +2049,9 @@ def export_phase(rng, smi: str, dev: torch.device) -> dict:
     move; its distance from the CPU read); the program's call against ``model.inference``, alternated, by CUDA
     events; (b) the n_fft-480 program at a reduced depth: the dense K1 and
     K2 once each a call, through the operators; (c) a batch-8 program
-    called at batch 4 raises.  Returns each path's launches."""
+    called at batch 4 raises; (d) the f32 program with the head damped
+    100x, scoped, within ``TF32_CONTROL_REL`` of the CPU, which TF32
+    allowed and unscoped must exceed.  Returns each path's launches."""
     from mdctgan_tpu_torch import api, export_cli, serve_export
     from mdctgan_tpu_torch.data.dataset import AudioAppDataset
     from mdctgan_tpu_torch.data.synthetic import speech_like
@@ -2107,7 +2153,8 @@ def export_phase(rng, smi: str, dev: torch.device) -> dict:
                 # take the process's, and serve_export.load scopes TF32 off.
                 # Called with TF32 allowed and no scope it must move; its
                 # distance from the CPU is read beside phase 6's bound, which
-                # it stays inside at these weights (PERF.md §6).
+                # it stays inside at these weights: the undamped head drives
+                # the SR to ~1000 (PERF.md §6).  14d holds TF32 to fail.
                 with torch.inference_mode(), float32_policy(allow_tf32=True):
                     tf32 = program.module()(x)
                 moved = max_err(tf32, serve(x))
@@ -2118,6 +2165,32 @@ def export_phase(rng, smi: str, dev: torch.device) -> dict:
                 if not moved > 0.0:
                     raise AssertionError("14a: TF32 allowed in the process did not reach the "
                                          "program's convolutions")
+                # 14d. the TF32 control that can fail: the f32 program of the
+                # same weights with the head damped 100x (phase 9.1's), whose
+                # SR stays within full scale as a trained model's does; the
+                # scoped program and the program with TF32 allowed, unscoped,
+                # against the port on the CPU
+                damped = dict(state, **{HEAD: state[HEAD] * 0.01})
+                (tmp / "pretrained_damped").mkdir()
+                torch.save(export_to_torch_keys(damped, generator_entries_for(
+                    build_generator(opt))), tmp / "pretrained_damped" / "latest_net_G.pth")
+                path_d = export([a if a != str(tmp / "pretrained") else
+                                 str(tmp / "pretrained_damped") for a in f32_flags + common],
+                                "flagship_f32_damped")
+                ref_d = api.create_model(opt, "cpu", state_dict=damped).inference(
+                    x[:real[0]].cpu())[1].numpy()
+                policy_d = float(np.abs(serve_export.load(path_d)(x)[:real[0]].cpu().numpy()
+                                        - ref_d).max())
+                with torch.inference_mode(), float32_policy(allow_tf32=True):
+                    tf32_d = float(np.abs(torch.export.load(path_d).module()(x)[:real[0]]
+                                          .cpu().numpy() - ref_d).max())
+                bound_d = TF32_CONTROL_REL * float(np.abs(ref_d).max())
+                check("14d: the damped f32 program (scoped) vs the port on the CPU", policy_d,
+                      bound_d, max_abs_ref=float(np.abs(ref_d).max()), tf32_allowed=tf32_d,
+                      tf32_share_of_bound=tf32_d / bound_d, rows=real[0])
+                if not tf32_d > bound_d:
+                    raise AssertionError(f"14d: TF32 allowed keeps the damped program within "
+                                         f"the bound: {tf32_d} <= {bound_d}")
                 # 14c. another batch raises
                 for bad in (x[: EXPORT_BATCH // 2], torch.cat([x, x])):
                     try:
@@ -2166,54 +2239,163 @@ def export_phase(rng, smi: str, dev: torch.device) -> dict:
     return out
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
-        return 2
-    if not (ROOT / "mdctgan_tpu_torch" / "csrc").is_dir():
-        print(f"chip_smoke: no mdctgan_tpu_torch package beside {__file__}",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    from mdctgan_tpu_torch.device import float32_policy
+def tools_phase(rng, smi: str, dev: torch.device) -> dict:
+    """Phase 15: the port's counterparts of the JAX tools beside its package.
+    (a) ``verify_import_cli`` on a reference-layout ``.pth`` of seeded
+    flagship weights (the head damped 100x, as phase 9.1's): with
+    ``--forward`` on the card a strict OK, and its imported generator's
+    logits against ``api.create_model``'s on the same input at phase 5's
+    bound; with ``--n_blocks_global 3``, as ``python -m``, exit 1 naming the
+    missing keys.  (b) ``dryrun.entry()``'s fn on the card against
+    ``model.inference`` of the same seeded flagship, bit for bit.  (c)
+    ``dryrun.dryrun_multichip(2)`` over two gloo ranks sharing the card.
+    Returns each path's launches."""
+    import contextlib
+    import io
 
-    with float32_policy():
-        return drive()
-
-
-def drive() -> int:
-    from mdctgan_tpu_torch import api
+    from mdctgan_tpu_torch import api, dryrun, verify_import_cli
     from mdctgan_tpu_torch.configs import flagship_opt
-    from mdctgan_tpu_torch.data.synthetic import speech_like as clip
     from mdctgan_tpu_torch.device import float32_policy
     from mdctgan_tpu_torch.models.generator import build_generator
-    from mdctgan_tpu_torch.ops import _build
     from mdctgan_tpu_torch.ops import mdct_kernels as K
+    from mdctgan_tpu_torch.options import TrainOptions
+    from mdctgan_tpu_torch.train.import_torch import export_to_torch_keys, generator_entries_for
     from mdctgan_tpu_torch.weights import random_jax_trees, state_dict_from_jax
 
-    # 1. the card ----------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    kind = torch.cuda.get_device_name(0)
-    emit({"torch": torch.__version__, "cuda": torch.version.cuda, "device": kind,
-          "count": torch.cuda.device_count()})
-    flops_peak, bytes_peak, tf32_peak = PEAKS["pcie" if "pcie" in kind.lower() else "sxm"]
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(SEED)
+    t_phase = time.perf_counter()
+    out = {}
+    flags = [a for a in GENERATE_FLAGS if a != "--fp16"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="tools_", dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        # 15a. the checkpoint verifier ------------------------------------------
+        opt = TrainOptions().parse(flags + ["--checkpoints_dir", str(tmp / "out")], save=False)
+        gen = build_generator(opt)
+        state = state_dict_from_jax(*random_jax_trees(gen, rng))
+        state[HEAD] *= 0.01
+        pth = tmp / "latest_net_G.pth"
+        torch.save(export_to_torch_keys(state, generator_entries_for(gen)), pth)
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        K.reset_launch_counts()
+        with contextlib.redirect_stdout(printed):
+            found = verify_import_cli.verify(
+                [str(pth), "--forward", "--gpu_ids", str(dev.index or 0)] + flags)
+        out["verify_import_forward"] = dict(K.LAUNCHES)
+        report = printed.getvalue().split("-------------- End ----------------\n")[-1]
+        emit({"phase": 15, "verify_import": report.splitlines(), "ok": found.ok,
+              "verify_s": time.perf_counter() - t0})
+        if not found.ok or "strict load: OK" not in report or "forward OK" not in report:
+            raise AssertionError(f"15a: the verifier did not report a strict OK:\n{report}")
+        model = api.create_model(opt, dev, state_dict=state)
+        with torch.inference_mode(), float32_policy():
+            got = found.module.logits(found.input)
+            ref = model.generator.logits(found.input)
+            served = model.generator(found.input).permute(0, 2, 3, 1).cpu().numpy()
+        scale = float(ref.abs().max())
+        diff = max_err(got, ref)
+        check("15a: the verifier's generator vs api.create_model's, logits on the card", diff,
+              5e-4 * max(1.0, scale), max_abs_ref=scale, bit_for_bit=diff == 0.0,
+              output_max_abs_diff=float(np.abs(found.output - served).max()),
+              shape=list(found.output.shape))
+        bad = list(flags)
+        bad[bad.index("--n_blocks_global") + 1] = "3"
+        proc = subprocess.run([sys.executable, "-m", "mdctgan_tpu_torch.verify_import_cli",
+                               str(pth)] + bad, cwd=ROOT, capture_output=True, text=True,
+                              timeout=300)
+        missing = [ln.strip() for ln in proc.stdout.splitlines()
+                   if "MISSING" in ln or "(expected" in ln]
+        emit({"phase": 15, "verify_import_wrong_flag": {"returncode": proc.returncode,
+                                                        "missing": missing[:6]}})
+        if proc.returncode != 1 or not missing or "WOULD FALL BACK" not in proc.stdout:
+            raise AssertionError(f"15a: --n_blocks_global 3 gave exit {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        del model, found
 
-    # 2. build -------------------------------------------------------------
+    # 15b. entry(): the flagship serving chain at seeded weights -------------
+    fn, (zero,) = dryrun.entry(dev)
+    model = api.create_model(flagship_opt(), dev)
+    noise = torch.from_numpy(
+        (0.1 * rng.standard_normal(zero.shape)).astype(np.float32)).to(dev)
+    K.reset_launch_counts()
+    sr = [fn(zero), fn(noise)]
+    out["entry"] = dict(K.LAUNCHES)
+    expected = {name: 0 for name in K.LAUNCHES}
+    expected["mdct_spectro"] = expected["imdct_audio"] = 2
+    if out["entry"] != expected:
+        raise AssertionError(f"15b: entry launched {out['entry']}, expected {expected}")
+    for x, y in zip((zero, noise), sr):
+        diff = max_err(y, model.inference(x)[1])
+        check("15b: entry()'s fn vs model.inference on the card (bit for bit)", diff, 0.0,
+              shape=list(y.shape), finite=bool(torch.isfinite(y).all()))
+    del model, fn
+
+    # 15c. the data-parallel dry run: two gloo ranks sharing the card ---------
     t0 = time.perf_counter()
-    reports = _build.build()
-    emit({"build_s": time.perf_counter() - t0})
-    for name, log in reports.items():
-        for line in log.splitlines():
-            if "entry function" in line or "registers" in line or "spill" in line:
-                print(f"[ptxas {name}] {line.strip()}", flush=True)
+    K.reset_launch_counts()
+    metrics = dryrun.dryrun_multichip(2, device=dev, backend="gloo")
+    out["dryrun_one_rank"] = dict(K.LAUNCHES)  # the one-process steps it holds them to
+    emit({"phase": 15, "dryrun_multichip": metrics, "ranks": 2, "backend": "gloo",
+          "dryrun_s": time.perf_counter() - t0,
+          "one_rank_launches": out["dryrun_one_rank"]})
+    emit({"phase": 15, "phase_s": time.perf_counter() - t_phase, "card": smi})
+    return out
 
-    errs = {name: 0.0 for name in K.LAUNCHES}
+
+def above_dense_range(top: int, dev: torch.device) -> dict:
+    """Phase 4's end: n_fft ``ABOVE_N``, above the dense form's ``top``.  The
+    ops refuse ``top`` + 2 before any launch; ``SpectralTransform`` takes the
+    matmul form from the configuration (one product each way, counted in
+    ``MATMULS``, no K1 or K2 launch), and its round trip gives the waveform
+    back within 1e-4.  Its own seed, so that later phases draw as before.
+    Returns the launches."""
+    from mdctgan_tpu_torch.ops import mdct as M
+    from mdctgan_tpu_torch.ops import mdct_kernels as K
+    from mdctgan_tpu_torch.ops.features import SpectralConfig, SpectralTransform
+
+    k = top // 2 + 1
+    K.reset_launch_counts()
+    for fn, args in ((K.mdct_spectro, ((2, 8 * k), (2 * k, k))),
+                     (K.imdct_audio, ((2, 9, k), (k, 2 * k)))):
+        try:
+            fn(*(torch.zeros(a, device=dev) for a in args))
+        except NotImplementedError as e:
+            emit({"above_dense_range": fn.__name__, "n_fft": 2 * k, "raised": str(e)})
+        else:
+            raise AssertionError(f"{fn.__name__} took n_fft {2 * k} above {top}")
+    n = ABOVE_N
+    t = 127 * (n // 2)
+    transform = SpectralTransform(SpectralConfig(n_fft=n, hop_length=n // 2, win_length=n,
+                                                 segment_length=t), dev)
+    x = torch.from_numpy((0.1 * np.random.default_rng(SEED + 1).standard_normal((2, t)))
+                         .astype(np.float32)).to(dev)
+    K.reset_launch_counts()
+    M.reset_matmul_counts()
+    with torch.inference_mode():
+        spec, pha, params = transform.to_spectro(x)
+        back = transform.to_audio(spec, params, pha, out_length=t)
+    launches, matmuls = dict(K.LAUNCHES), dict(M.MATMULS)
+    emit({"above_dense_range": "SpectralTransform", "n_fft": n, "fused": transform.fused,
+          "launches": launches, "matmuls": matmuls})
+    if transform.fused or any(launches.values()) or matmuls != {"mdct_matmul": 1,
+                                                                   "imdct_matmul": 1}:
+        raise AssertionError(f"n_fft {n}: fused {transform.fused}, launches {launches}, "
+                             f"matmuls {matmuls}")
+    check("n_fft above the dense range: the matmul form's round trip", max_err(back, x), 1e-4,
+          n_fft=n, batch=2, T=t)
+    return launches
+
+
+def transform_checks(rng, dev: torch.device, errs: dict):
+    """Phases 3 and 4: ``check_transforms(n_fft, batches, ts, frames)``, which
+    checks K1 and K2 at one n_fft on ``dev`` and keeps each kernel's worst
+    error in ``errs`` (by name, and by (name, n_fft))."""
+    from mdctgan_tpu_torch.ops import _build
+    from mdctgan_tpu_torch.ops import mdct_kernels as K
+
+    def keep(name: str, n_fft: int, err: float) -> None:
+        errs[name] = max(errs[name], err)
+        errs[(name, n_fft)] = max(errs.get((name, n_fft), 0.0), err)
 
     def tf32x1(kernel: str, src, out, *args) -> torch.Tensor:
         """The dense form's 1xTF32 instantiation (hi x hi only) on ``src``:
@@ -2264,7 +2446,7 @@ def drive() -> int:
                 raw = K.mdct_spectro(x, mat)
                 assert got.shape == (b, K.n_frames(t, 2 * k, k), k)
                 ref64 = K.mdct_spectro_plain(x.double(), mats["f64"][0], GAIN, 0.2, 0.0)
-                errs[k1] = max(errs[k1], check(
+                keep(k1, n_fft, check(
                     "K1 normalized vs f64 plain", max_err(got, ref64), 5e-4,
                     kernel=k1, n_fft=n_fft, batch=b, T=t))
                 # On unit-variance noise the f32 plain version is itself up
@@ -2296,7 +2478,7 @@ def drive() -> int:
                                  K.mdct_spectro_plain(x.double(), mats["f64"][0]), 2e-3, True,
                                  n_fft=n_fft, batch=b, T=t)
                 quiet = 0.25 * x
-                errs[k1] = max(errs[k1], check(
+                keep(k1, n_fft, check(
                     "K1 normalized vs f32 plain", max_err(
                         K.mdct_spectro(quiet, mat, GAIN, 0.2, 0.0),
                         K.mdct_spectro_plain(quiet, mat, GAIN, 0.2, 0.0)),
@@ -2323,7 +2505,7 @@ def drive() -> int:
                              K.imdct_audio_plain(sp.double(), mats["f64"][1]), 1e-4, True,
                              n_fft=n_fft, batch=b)
             for prec, (_, sy) in mats.items():
-                errs[k2] = max(errs[k2], check(
+                keep(k2, n_fft, check(
                     f"K2 from [-1,1] vs {prec} plain", max_err(
                         got, K.imdct_audio_plain(y.to(sy.dtype), sy, GAIN, 5.0, 0.0)),
                     1e-3, kernel=k2, n_fft=n_fft, batch=b))
@@ -2336,12 +2518,69 @@ def drive() -> int:
         check("K1->K2 round trip", max_err(back[:, :t], x), 1e-4,
               kernels=[k1, k2], n_fft=n_fft, batch=2, T=t)
 
+    return check_transforms
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    if not (ROOT / "mdctgan_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no mdctgan_tpu_torch package beside {__file__}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from mdctgan_tpu_torch.device import float32_policy
+
+    with float32_policy():
+        return drive()
+
+
+def drive() -> int:
+    from mdctgan_tpu_torch import api
+    from mdctgan_tpu_torch.configs import flagship_opt
+    from mdctgan_tpu_torch.data.synthetic import speech_like as clip
+    from mdctgan_tpu_torch.device import float32_policy
+    from mdctgan_tpu_torch.models.generator import build_generator
+    from mdctgan_tpu_torch.ops import _build
+    from mdctgan_tpu_torch.ops import mdct_kernels as K
+    from mdctgan_tpu_torch.weights import random_jax_trees, state_dict_from_jax
+
+    # 1. the card ----------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    emit({"torch": torch.__version__, "cuda": torch.version.cuda, "device": kind,
+          "count": torch.cuda.device_count()})
+    flops_peak, bytes_peak, tf32_peak = PEAKS["pcie" if "pcie" in kind.lower() else "sxm"]
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+
+    # 2. build -------------------------------------------------------------
+    t0 = time.perf_counter()
+    reports = _build.build()
+    emit({"build_s": time.perf_counter() - t0})
+    for name, log in reports.items():
+        for line in log.splitlines():
+            if "entry function" in line or "registers" in line or "spill" in line:
+                print(f"[ptxas {name}] {line.strip()}", flush=True)
+
+    errs = {name: 0.0 for name in K.LAUNCHES}
+    check_transforms = transform_checks(rng, dev, errs)
+
     # 3-4. K1 and K2 against their plain versions ---------------------------
     check_transforms(512, BATCHES, (32512, 32000), 128)
     for n in (64, 128, 2048):
         check_transforms(n, (2,), (32512,), 128)
-    for n, t, frames in DENSE_CHECKS:  # not a power of two: the dense form
+    top = K.dense_max_n(dev)  # the dense form's largest N on this card
+    emit({"dense_max_n": top, "smem_bytes": K.dense_smem_bytes(K.DENSE_MIN_BM, top // 2),
+          "smem_optin": torch.cuda.get_device_properties(dev).shared_memory_per_block_optin})
+    for n, t, frames in DENSE_CHECKS + ((top, 8 * (top // 2), 8),):  # the dense form
         check_transforms(n, DENSE_BATCHES, (t,), frames)
+    above_launches = above_dense_range(top, dev)
     n_fft, k_bins = 512, 256
     mat = K.spectro_matrix(n_fft, dev)
     syn = K.synth_matrix(n_fft, dev)
@@ -2497,6 +2736,7 @@ def drive() -> int:
 
     time_forms(512, TIMED_BATCHES, ("fft", "dense"))
     time_forms(DENSE_GEOMETRY["n_fft"], DENSE_TIMED_BATCHES, ("dense",))
+    time_forms(*DENSE_RANGE_TIMED, ("dense",))
 
     # the least time of one kernel node in a graph: a one-element add
     tiny = torch.zeros(1, device=dev)
@@ -2551,6 +2791,9 @@ def drive() -> int:
     # 14. the serving export ----------------------------------------------------
     export_launches = export_phase(rng, smi, dev)
 
+    # 15. the checkpoint verifier and the dry-run entry points --------------------
+    tools_launches = tools_phase(rng, smi, dev)
+
     replaces = {
         "mdct_spectro": "mdctgan_tpu/ops/pallas_mdct.py:80",
         "imdct_audio": "mdctgan_tpu/ops/pallas_mdct.py:185",
@@ -2560,7 +2803,7 @@ def drive() -> int:
                      "train": train_launches, "train_fp16": train16_launches,
                      "generate": generate_launches, "train_cli": train_cli_launches,
                      **modes_launches, **parallel_launches, **dense_launches,
-                     **export_launches}
+                     **export_launches, **tools_launches, "n8192_transform": above_launches}
     # each path's n_fft and batch: phase 13's at n_fft 960, the others' at 512
     path_shapes = {**{path: (512, b) for path, b in PATH_BATCHES.items()},
                    "n960_serving": (DENSE_GEOMETRY["n_fft"], MAIN_BATCH),
@@ -2568,7 +2811,9 @@ def drive() -> int:
                    "n960_train_fp16": (DENSE_GEOMETRY["n_fft"], TRAIN_BATCH),
                    "export_serving": (512, EXPORT_BATCH),
                    "export_serving_fp16": (512, EXPORT_BATCH),
-                   "export_n480": (480, EXPORT_BATCH)}
+                   "export_n480": (480, EXPORT_BATCH),
+                   "verify_import_forward": (512, 1), "entry": (512, 1),
+                   "dryrun_one_rank": (64, 2), "n8192_transform": (ABOVE_N, 2)}
     # the numbers at the kernel's own main path: serving at batch 8, at n_fft
     # 512 for the FFT forms, 960 for the dense forms
     main_n = {"mdct_spectro": 512, "imdct_audio": 512,
@@ -2583,6 +2828,11 @@ def drive() -> int:
             if path != "serving"},
          "max_abs_err": errs[name], "n_fft": main_n[name],
          **{k: rows[(name, main_n[name], MAIN_BATCH)][k] for k in numbers},
+         # phases 3-4: the worst error at each N checked; phase 7 at N 4096
+         "checked_n": {str(n): e for (kn, n), e in
+                       ((k, v) for k, v in errs.items() if isinstance(k, tuple)) if kn == name},
+         **({"n4096": {k: rows[(name, 4096, MAIN_BATCH)][k] for k in numbers}}
+            if (name, 4096, MAIN_BATCH) in rows else {}),
          "paths": {path: {"n_fft": n, "batch": b, "launches": path_launches[path][name],
                           **{k: rows[(name, n, b)][k] for k in numbers
                              if (name, n, b) in rows}}

@@ -14,7 +14,8 @@ the per-sample min/max onto ``norm_range``.
 Two forms compute the transform, and the constructor picks one from the
 configuration, before any launch (``fused_compatible``, the JAX package's
 ``_fused_compatible``): arcsinh with ``abs_norm``, centred, win = n_fft =
-2*hop, float32 and increasing ranges run kernels K1 and K2
+2*hop, float32, increasing ranges and an n_fft within the dense form's
+range (``mdct_kernels.dense_max_n``) run kernels K1 and K2
 (``ops/mdct_kernels.py``), whose epilogue and prologue are the whole
 normalization, as the JAX package runs its Pallas kernels there; masking
 comes after K1.  Every other configuration runs the matmul form
@@ -117,8 +118,15 @@ class SpectralConfig:
         return int(self.n_fft * (1 - self.sr_sampling_rate / self.hr_sampling_rate) // 2)
 
 
-def fused_compatible(cfg: SpectralConfig, dtype=torch.float32) -> bool:
-    """Whether K1/K2 serve ``cfg``: the JAX package's ``_fused_compatible``."""
+def fused_compatible(cfg: SpectralConfig, dtype=torch.float32, device=None) -> bool:
+    """Whether K1/K2 serve ``cfg``: the JAX package's ``_fused_compatible``,
+    and an n_fft within the dense form's range on ``device``
+    (``mdct_kernels.dense_max_n``; sm_90's when None).  That limit departs
+    from the JAX function, which has none: the Pallas kernels stop at a size
+    too, where the whole (N, N/2) matrix no longer fits in VMEM, but JAX
+    finds it only when it compiles.  The port's limit comes from the card's
+    shared memory and is known here, so a larger n_fft runs the matmul form
+    by configuration, never after a failed launch."""
     return (
         cfg.arcsinh_transform
         and not cfg.explicit_encoding
@@ -130,6 +138,7 @@ def fused_compatible(cfg: SpectralConfig, dtype=torch.float32) -> bool:
         and dtype == torch.float32
         and cfg.src_range[1] > cfg.src_range[0]
         and cfg.norm_range[1] > cfg.norm_range[0]
+        and cfg.n_fft <= mdct_kernels.dense_max_n(device)
     )
 
 
@@ -152,7 +161,7 @@ class SpectralTransform:
     def __init__(self, cfg: SpectralConfig, device="cuda", dtype=torch.float32):
         device = resolve_device(device)
         self.cfg, self.device, self.dtype = cfg, device, dtype
-        self.fused = fused_compatible(cfg, dtype)
+        self.fused = fused_compatible(cfg, dtype, device)
         self.mdct = MDCT(cfg.n_fft, cfg.hop_length, cfg.win_length, cfg.center,
                          device, dtype)
         self.imdct = IMDCT(cfg.n_fft, cfg.hop_length, cfg.win_length, cfg.center,

@@ -20,9 +20,12 @@ failure:
   ``imdct_audio_dense``) for every other even N: the (N, N/2) product
   against ``spectro_matrix`` (K2: ``[S[:, k:]; S[:, :k]]`` of
   ``synth_matrix``) on the tensor cores in 3xTF32, reading the matrix as
-  ``dense_operand`` lays it out, built once per (N, device).  It takes N
-  up to about 5600 on an H100 (17 hops of the source must fit in shared
-  memory); above that its launch fails and the wrapper raises.
+  ``dense_operand`` lays it out, built once per (N, device).  A block
+  stages at least 17 hops of the source in shared memory, so it takes N up
+  to ``dense_max_n`` (5568 on an H100: 227 KB a block).  Every check of the
+  ops refuses a larger N with ``NotImplementedError`` before any launch,
+  on every device and for fake tensors, and ``ops/features.py`` gives such
+  an N the matmul form from the configuration.
 
 Bound on an H100 SXM at the flagship shape (batch 8, N = 512, 128 frames):
 each kernel must move about 2.1 MB (its input, its output and the window),
@@ -65,8 +68,19 @@ from mdctgan_tpu_torch.ops.mdct import (  # noqa: F401
 
 _LN10 = math.log(10.0)
 # The dense form's tile, as csrc/window_gemm.cuh has it: output columns a
-# block (dense::BN) and depth values of each half a ring stage (dense::BK).
+# block (dense::BN) and depth values of each half a ring stage (dense::BK);
+# and what its shared memory holds: the threads of a block, the W ring's
+# stages and floats a stage, the pitch of the warps' sums, and the fewest
+# rows a block takes (its BM of 64, 32 or 16).
 DENSE_BN, DENSE_BK = 32, 32
+DENSE_THREADS, DENSE_STAGES = 256, 5
+DENSE_STAGE_FLOATS = 2 * (DENSE_BK // 8) * (DENSE_BN // 8) * 32 * 2
+DENSE_RED_PITCH = DENSE_BN + 8
+DENSE_MIN_BM = 16
+# sm_90's opt-in limit of dynamic shared memory a block (227 KB): the limit
+# for a tensor off the card (the plain version; a fake tensor on a host
+# without a card)
+SM90_SMEM_OPTIN = 232448
 
 # Kernel launches since the last ``reset_launch_counts()``; only the wrappers
 # below add to these, and only where they launch.
@@ -90,6 +104,58 @@ def kernel_for(kernel: str, n_fft: int) -> str:
     for a power of two in [64, 2048], its dense form otherwise."""
     fft = 64 <= n_fft <= 2048 and n_fft & (n_fft - 1) == 0
     return kernel if fft else f"{kernel}_dense"
+
+
+def dense_smem_bytes(bm: int, hop: int) -> int:
+    """``dense::smem_bytes(bm, hop)``: the W ring, then the (bm + 1) staged
+    hops of the source (each padded to ``DENSE_BK`` and 4 more floats), or
+    the warps' sums where those are larger."""
+    hop_pad = -(-hop // DENSE_BK) * DENSE_BK
+    span = (bm + 1) * (hop_pad + 4)
+    red = DENSE_THREADS // 32 * 16 * DENSE_RED_PITCH
+    return 4 * (DENSE_STAGES * DENSE_STAGE_FLOATS + max(span, red))
+
+
+@functools.lru_cache(maxsize=None)
+def _card_smem_optin(index: int) -> int:
+    return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
+
+
+def _smem_optin(device: torch.device) -> int:
+    if device.type != "cuda" or not torch.cuda.is_available():
+        return SM90_SMEM_OPTIN
+    return _card_smem_optin(torch.cuda.current_device() if device.index is None
+                            else device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_max_n(limit: int) -> int:
+    hop = 0
+    while dense_smem_bytes(DENSE_MIN_BM, hop + DENSE_BK) <= limit:
+        hop += DENSE_BK
+    # every hop up to this multiple of DENSE_BK pads to at most it, and no
+    # larger hop fits: 2 * hop is the largest N
+    return 2 * hop
+
+
+def dense_max_n(device=None) -> int:
+    """The largest N the dense form takes on ``device``: ``DENSE_MIN_BM``
+    rows' staged source within the card's opt-in shared memory a block
+    (``torch.cuda.get_device_properties``), or sm_90's off the card (None,
+    the CPU, a fake CUDA tensor on a host without one).  5568 on an H100."""
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    return _dense_max_n(_smem_optin(dev))
+
+
+def check_dense_range(name: str, n_fft: int, device) -> None:
+    """Raise ``NotImplementedError`` for an N above ``dense_max_n``: every
+    such N is the dense form's (``kernel_for``), and its launch would fail."""
+    limit = dense_max_n(device)
+    if n_fft > limit:
+        raise NotImplementedError(
+            f"{name}: n_fft {n_fft} is above the dense form's {limit} on {device} "
+            "(17 hops of the source must fit in a block's shared memory); the "
+            "matmul form (ops/mdct.py) serves it")
 
 
 # --------------------------------------------------------------------------
@@ -210,6 +276,7 @@ def _k1_shape(name, signal, mat, hop_length, win_length):
     """K1's inputs checked as each implementation checks them -> (B, T, N, F)."""
     n_fft = mat.shape[0]
     check_geometry(n_fft, hop_length, win_length)
+    check_dense_range(name, n_fft, signal.device)
     _check_inputs(name, signal, mat)
     if signal.dim() != 2 or mat.shape != (n_fft, n_fft // 2) or n_fft % 2:
         raise ValueError(
@@ -224,6 +291,7 @@ def _k2_shape(name, spec, synth, hop_length, win_length):
     """K2's inputs checked as each implementation checks them -> (B, F, K)."""
     k = synth.shape[0]
     check_geometry(2 * k, hop_length, win_length)
+    check_dense_range(name, 2 * k, spec.device)
     _check_inputs(name, spec, synth)
     if spec.dim() != 3 or spec.shape[-1] != k or synth.shape != (k, 2 * k):
         raise ValueError(

@@ -15,7 +15,9 @@ the port reads differently:
 * ``--fused_mdct``: ``auto`` launches K1/K2 on a CUDA tensor for the
   configurations they serve and runs the matmul form for the others
   (``ops/features.py``); ``on`` raises ``ValueError`` for a configuration
-  K1/K2 do not serve, as the JAX package does; ``off`` raises, because the
+  K1/K2 do not serve, as the JAX package does (and, unlike it, for an
+  n_fft above the dense kernels' ``dense_max_n``, 5568 on sm_90, which
+  ``auto`` gives the matmul form); ``off`` raises, because the
   plain versions are the CPU path and the spec, not a serving path.
 * ``--upsample_method``, ``--head_phases``, ``--dilated_vjp``,
   ``--matmul_precision`` and ``--jax_cache_dir`` select equal-math TPU forms
@@ -39,6 +41,7 @@ import torch
 
 from mdctgan_tpu_torch.device import resolve_device
 from mdctgan_tpu_torch.ops.features import SpectralConfig, fused_compatible
+from mdctgan_tpu_torch.ops.mdct_kernels import dense_max_n
 
 # the reference's audio_config.py constants
 N_FFT = 512
@@ -337,7 +340,8 @@ def spectral_config_from_opt(opt) -> SpectralConfig:
     if o.get("fused_mdct", "auto") == "on" and not fused_compatible(cfg):
         raise ValueError(
             "--fused_mdct on requires arcsinh_transform + abs_norm with hop = win/2 = "
-            "n_fft/2, center=True and increasing src_range/norm_range")
+            "n_fft/2, center=True, increasing src_range/norm_range and n_fft at most "
+            f"{dense_max_n()} (the dense kernels' shared memory)")
     return cfg
 
 

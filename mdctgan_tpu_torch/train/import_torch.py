@@ -291,6 +291,21 @@ def expected_torch_keys(entries: List[Entry]) -> Tuple[List[str], List[str]]:
     return req, opt
 
 
+def _torch_shapes(entries: List[Entry],
+                  shapes: Mapping[str, Tuple[int, ...]]) -> Dict[str, Tuple[int, ...]]:
+    """The reference's shape of each reference key a table implies, from the
+    port's shapes by port key (``module.state_dict()``'s, which may live on
+    the meta device): both sides are PyTorch layouts, so they carry over.
+    A leaf the module lacks (a bias-free conv's bias) is left out."""
+    out: Dict[str, Tuple[int, ...]] = {}
+    for prefix, path, kind in entries:
+        for leaf in _LEAVES[kind]:
+            port = _port_key(path, leaf)
+            if port in shapes:
+                out[f"{prefix}.{leaf}"] = tuple(shapes[port])
+    return out
+
+
 def convert_state_dict(
     state_dict: Mapping[str, torch.Tensor],
     entries: List[Entry],

@@ -183,10 +183,11 @@ def test_port_imports_no_jax():
              + sorted((ROOT / "probes").glob("*.py")))
     assert len(files) > 10
     # the train entry point and every module it added; the serving export
-    # and the FLAC encoder
+    # and the FLAC encoder; the checkpoint verifier and the dry run
     for name in ("train_cli.py", "export_torch_cli.py", "data/pipeline.py", "train/checkpoint.py",
                  "utils/visualizer.py", "utils/html.py", "utils/spectro_img.py",
-                 "utils/profiling.py", "export_cli.py", "serve_export.py", "data/flacenc.py"):
+                 "utils/profiling.py", "export_cli.py", "serve_export.py", "data/flacenc.py",
+                 "verify_import_cli.py", "dryrun.py"):
         assert ROOT / "mdctgan_tpu_torch" / name in files, name
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
