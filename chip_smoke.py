@@ -211,7 +211,7 @@ Every result is one JSON line; a ``kernels`` line sums the kernels up
 ``n960_serving_fp16`` and ``n960_train_fp16``, phase 14's
 ``export_serving`` and ``export_serving_fp16`` (the fresh process's) and
 ``export_n480``, phase 15's ``verify_import_forward``, ``entry`` and
-``dryrun_one_rank`` (the one process the ranks are held to), phase 4's
+``dryrun_ranks`` (both ranks of the dry run), phase 4's
 ``n8192_transform`` (no launch), and under
 ``paths`` each
 path's n_fft, batch, launches and the kernel's numbers there; ``launches``
@@ -2333,11 +2333,20 @@ def tools_phase(rng, smi: str, dev: torch.device) -> dict:
     # 15c. the data-parallel dry run: two gloo ranks sharing the card ---------
     t0 = time.perf_counter()
     K.reset_launch_counts()
-    metrics = dryrun.dryrun_multichip(2, device=dev, backend="gloo")
-    out["dryrun_one_rank"] = dict(K.LAUNCHES)  # the one-process steps it holds them to
+    metrics, rank_launches = dryrun.dryrun_multichip(2, device=dev, backend="gloo")
+    reference = dict(K.LAUNCHES)  # the one-process steps the ranks are held to
+    out["dryrun_ranks"] = {name: sum(r[name] for r in rank_launches) for name in K.LAUNCHES}
     emit({"phase": 15, "dryrun_multichip": metrics, "ranks": 2, "backend": "gloo",
-          "dryrun_s": time.perf_counter() - t0,
-          "one_rank_launches": out["dryrun_one_rank"]})
+          "dryrun_s": time.perf_counter() - t0, "rank_launches": rank_launches,
+          "reference_launches": reference})
+    # K1 twice a step, an Adam and an SGD(1) step: in each of the two ranks,
+    # and in the one process that holds them
+    for label, got, steps in (("the ranks", out["dryrun_ranks"], 2 * 2),
+                              ("the one-process reference", reference, 2)):
+        expected = {name: 0 for name in K.LAUNCHES}
+        expected["mdct_spectro"] = 2 * steps
+        if got != expected:
+            raise AssertionError(f"15c: {label} launched {got}, expected {expected}")
     emit({"phase": 15, "phase_s": time.perf_counter() - t_phase, "card": smi})
     return out
 
@@ -2813,7 +2822,7 @@ def drive() -> int:
                    "export_serving_fp16": (512, EXPORT_BATCH),
                    "export_n480": (480, EXPORT_BATCH),
                    "verify_import_forward": (512, 1), "entry": (512, 1),
-                   "dryrun_one_rank": (64, 2), "n8192_transform": (ABOVE_N, 2)}
+                   "dryrun_ranks": (64, 1), "n8192_transform": (ABOVE_N, 2)}
     # the numbers at the kernel's own main path: serving at batch 8, at n_fft
     # 512 for the FFT forms, 960 for the dense forms
     main_n = {"mdct_spectro": 512, "imdct_audio": 512,

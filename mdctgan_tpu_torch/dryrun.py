@@ -10,7 +10,8 @@ It is the single-device check that the whole chain builds and runs.
 ``dryrun_multichip(n, device="cuda")`` -> the losses of one train step of
 the tiny configuration (``configs.tiny_opt``, the JAX package's) over n
 ranks, one sample a rank, through ``parallel.mesh.spawn``: NCCL on n cards,
-gloo on the CPU.  It holds the ranks to one process on the same global
+gloo on the CPU; and each rank's kernel launches.  The batch is
+``train/grad_truth.py``'s noise input, the steps its ``sgd_step``.  It holds the ranks to one process on the same global
 batch, as the JAX function holds an n-device mesh to one device: the Adam
 step's losses within 1e-4 (relative, floor 1), and an SGD(lr=1) step's
 update (the all-reduced gradient) within 2e-4 of the tree's largest
@@ -35,12 +36,14 @@ from mdctgan_tpu_torch.configs import flagship_opt, tiny_opt
 from mdctgan_tpu_torch.device import float32_policy, resolve_device
 from mdctgan_tpu_torch.models.discriminator import build_discriminator
 from mdctgan_tpu_torch.models.generator import build_generator
+from mdctgan_tpu_torch.ops import mdct_kernels as K
 from mdctgan_tpu_torch.ops.features import SpectralTransform
 from mdctgan_tpu_torch.options import spectral_config_from_opt
 from mdctgan_tpu_torch.parallel import mesh
+from mdctgan_tpu_torch.train import grad_truth as GT
 from mdctgan_tpu_torch.train.schedule import OptimizerSpec
 from mdctgan_tpu_torch.train.state import create_train_state
-from mdctgan_tpu_torch.train.step import InferenceModule, build_train_step
+from mdctgan_tpu_torch.train.step import InferenceModule
 
 LOSS_REL = 1e-4  # the JAX dry run's bound on the losses
 UPDATE_REL = 2e-4  # and on the SGD(1) update, of the tree's largest movement
@@ -77,45 +80,29 @@ def tiny_state_dicts() -> Tuple[Dict, Dict]:
     return gen.state_dict(), disc.state_dict()
 
 
-def tiny_batch(rows: int) -> Dict[str, np.ndarray]:
-    """``rows`` segments: HR noise at 0.1 and an LR 0.01 away from it, as
-    the JAX dry run draws them (from ``SEED``)."""
-    rng = np.random.default_rng(SEED)
-    t = tiny_opt()["segment_length"]
-    hr = (0.1 * rng.standard_normal((rows, t))).astype(np.float32)
-    lr = (hr + 0.01 * rng.standard_normal((rows, t))).astype(np.float32)
-    return {"lr_audio": lr, "hr_audio": hr}
-
-
-def train_step_once(tx: OptimizerSpec, g_sd, d_sd, batch, device,
-                    ranks: Optional[mesh.Ranks] = None) -> Tuple[Dict[str, float], Dict]:
-    """One step of the tiny configuration from ``g_sd``/``d_sd`` with ``tx``
-    for both nets, on this rank's rows of ``batch`` (all of them without
-    ranks) -> (the metrics, G's state after it as numpy)."""
+def tiny_step(tx: OptimizerSpec, g_sd, d_sd, batch, device,
+              ranks: Optional[mesh.Ranks] = None) -> Tuple[Dict[str, float], Dict]:
+    """``grad_truth.sgd_step`` of the tiny configuration from ``g_sd``/``d_sd``
+    with ``tx`` for both nets, on this rank's rows of ``batch`` (all of
+    them without ranks) -> (the losses, G's update as float64 numpy by
+    name, which a rank's result pickles without shared memory)."""
     opt = tiny_opt()
-    gen, disc = build_generator(opt), build_discriminator(opt)
-    gen.load_state_dict(g_sd, strict=True)
-    disc.load_state_dict(d_sd, strict=True)
-    with float32_policy():
-        state = create_train_state(gen, disc, tx, tx, device=device, ranks=ranks)
-        step = build_train_step(SpectralTransform(spectral_config_from_opt(opt), device),
-                                tx, tx, n_layers_d=opt["n_layers_D"], num_d=opt["num_D"],
-                                ranks=ranks)
-        rows = slice(None) if ranks is None else ranks.host_rows(len(batch["hr_audio"]))
-        state, metrics = step(state, {k: torch.from_numpy(v[rows]).to(device)
-                                      for k, v in batch.items()})
-    if state.step != 1:
-        raise AssertionError(f"the step count is {state.step} after one step")
-    return ({k: float(v) for k, v in metrics.items()},
-            {k: v.cpu().numpy() for k, v in state.generator.state_dict().items()})
+    rows = slice(None) if ranks is None else ranks.host_rows(len(batch["hr_audio"]))
+    metrics, updates = GT.sgd_step(
+        opt, GT.load_nets(opt, g_sd, d_sd), SpectralTransform(spectral_config_from_opt(opt),
+                                                              device),
+        {k: v[rows] for k, v in batch.items()}, device, ranks=ranks, tx=tx)
+    return metrics, {k: v.numpy() for k, v in updates["G"].items()}
 
 
 def _rank(ranks: mesh.Ranks, g_sd, d_sd, batch) -> Dict:
-    """What each rank of ``dryrun_multichip`` runs: the Adam step's metrics
-    and G after an SGD(1) step, both from the same weights."""
-    metrics, _ = train_step_once(_ADAM, g_sd, d_sd, batch, ranks.device, ranks)
-    _, g_sgd = train_step_once(_SGD, g_sd, d_sd, batch, ranks.device, ranks)
-    return {"metrics": metrics, "generator": g_sgd}
+    """What each rank of ``dryrun_multichip`` runs: the Adam step's losses
+    and G's SGD(1) update, both from the same weights, and the kernel
+    launches of the two."""
+    K.reset_launch_counts()
+    metrics, _ = tiny_step(_ADAM, g_sd, d_sd, batch, ranks.device, ranks)
+    _, g_sgd = tiny_step(_SGD, g_sd, d_sd, batch, ranks.device, ranks)
+    return {"metrics": metrics, "generator": g_sgd, "launches": dict(K.LAUNCHES)}
 
 
 def rank_devices(n_devices: int, device="cuda", backend: Optional[str] = None) -> List[str]:
@@ -134,33 +121,36 @@ def rank_devices(n_devices: int, device="cuda", backend: Optional[str] = None) -
     return [f"cuda:{i}" for i in range(n_devices)]
 
 
-def dryrun_multichip(n_devices: int, device="cuda",
-                     backend: Optional[str] = None) -> Dict[str, float]:
+def dryrun_multichip(n_devices: int, device="cuda", backend: Optional[str] = None
+                     ) -> Tuple[Dict[str, float], List[Dict[str, int]]]:
     """One step of the tiny configuration over ``n_devices`` ranks, held to
     one process on the same global batch (module docstring); returns the
-    ranks' metrics."""
+    ranks' losses and each rank's kernel launches (``K.LAUNCHES``, K1 twice
+    a step on a card, none on the CPU)."""
     devices = rank_devices(n_devices, device, backend)
     g_sd, d_sd = tiny_state_dicts()
-    batch = tiny_batch(n_devices)  # one sample a rank
+    # one sample a rank
+    batch = GT.inputs("noise", np.random.default_rng(SEED), n_devices,
+                      tiny_opt()["segment_length"])
     results = mesh.spawn(_rank, devices, args=(g_sd, d_sd, batch), backend=backend,
                          deadline_s=DEADLINE_S)
     metrics, g_after = results[0]["metrics"], results[0]["generator"]
-    one, _ = train_step_once(_ADAM, g_sd, d_sd, batch, devices[0])
+    one, _ = tiny_step(_ADAM, g_sd, d_sd, batch, devices[0])
     for k in ("loss_G", "loss_D"):
         a, c = metrics[k], one[k]
         if not abs(a - c) <= LOSS_REL * max(abs(c), 1.0):
             raise AssertionError(f"DP mismatch on {k}: {n_devices} ranks {a} vs 1 rank {c}")
-    _, g_one = train_step_once(_SGD, g_sd, d_sd, batch, devices[0])
+    _, g_one = tiny_step(_SGD, g_sd, d_sd, batch, devices[0])
     # the tree-wide gradient scale, as in JAX: reduction noise in one leaf
     # couples to the whole tree through shared upstream activations
-    scale = max(1.0, max(float(np.abs(g_one[k] - g_sd[k].numpy()).max()) for k in g_one))
+    scale = max(1.0, max(float(np.abs(v).max()) for v in g_one.values()))
     for k, v in g_one.items():
         err = float(np.abs(g_after[k] - v).max())
         if not err <= UPDATE_REL * scale:
             raise AssertionError(f"DP gradient mismatch at {k}: max|diff|={err:.3e} "
                                  f"vs tree scale {scale:.3e}")
     print(f"dryrun_multichip OK on {n_devices} ranks (+ DP invariance vs 1 rank):", metrics)
-    return metrics
+    return metrics, [r["launches"] for r in results]
 
 
 def main(argv=None) -> None:

@@ -16,8 +16,9 @@ the port reads differently:
   configurations they serve and runs the matmul form for the others
   (``ops/features.py``); ``on`` raises ``ValueError`` for a configuration
   K1/K2 do not serve, as the JAX package does (and, unlike it, for an
-  n_fft above the dense kernels' ``dense_max_n``, 5568 on sm_90, which
-  ``auto`` gives the matmul form); ``off`` raises, because the
+  n_fft above the dense kernels' ``dense_max_n`` on the cards ``--gpu_ids``
+  names, or sm_90's 5568 where this host has none of them; ``auto`` gives
+  such an n_fft the matmul form); ``off`` raises, because the
   plain versions are the CPU path and the spec, not a serving path.
 * ``--upsample_method``, ``--head_phases``, ``--dilated_vjp``,
   ``--matmul_precision`` and ``--jax_cache_dir`` select equal-math TPU forms
@@ -337,11 +338,17 @@ def spectral_config_from_opt(opt) -> SpectralConfig:
         if k in fields:
             fields[k] = tuple(float(v) for v in fields[k])
     cfg = SpectralConfig(**fields)
-    if o.get("fused_mdct", "auto") == "on" and not fused_compatible(cfg):
-        raise ValueError(
-            "--fused_mdct on requires arcsinh_transform + abs_norm with hop = win/2 = "
-            "n_fft/2, center=True, increasing src_range/norm_range and n_fft at most "
-            f"{dense_max_n()} (the dense kernels' shared memory)")
+    if o.get("fused_mdct", "auto") == "on":
+        # the dense kernels' limit on the cards --gpu_ids names, where this
+        # host has them; sm_90's otherwise
+        cards = [torch.device("cuda", i) for i in o.get("gpu_ids", [])
+                 if torch.cuda.is_available() and i < torch.cuda.device_count()] or [None]
+        if not all(fused_compatible(cfg, device=card) for card in cards):
+            raise ValueError(
+                "--fused_mdct on requires arcsinh_transform + abs_norm with hop = win/2 = "
+                "n_fft/2, center=True, increasing src_range/norm_range and n_fft at most "
+                f"{min(dense_max_n(card) for card in cards)} (the dense kernels' shared "
+                "memory)")
     return cfg
 
 

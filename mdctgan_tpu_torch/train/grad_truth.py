@@ -68,13 +68,15 @@ def load_nets(opt: Mapping, g_state: Mapping, d_state: Mapping,
 
 def sgd_step(opt: Mapping, nets: Mapping[str, torch.nn.Module], transform,
              batch: Mapping[str, np.ndarray], device, allow_tf32: bool = False,
-             sample_mask: Optional[torch.Tensor] = None, ranks=None
+             sample_mask: Optional[torch.Tensor] = None, ranks=None, tx=None
              ) -> Tuple[Dict[str, float], Grads]:
     """One SGD(lr=1) step of ``build_train_step`` on ``nets`` (moved to
     ``device``; the inputs take the dtype of G's first parameter): its
     losses, and its gradients (the updates) as float64 CPU tensors by
     network and name.  With ``ranks`` (``parallel.mesh.Ranks``), one rank's
-    part of a data-parallel step on its rows ``batch``."""
+    part of a data-parallel step on its rows ``batch``.  ``tx`` (an
+    ``OptimizerSpec`` for both nets) replaces SGD(1); the updates are then
+    its own, not the gradients."""
     from mdctgan_tpu_torch.options import train_options
     from mdctgan_tpu_torch.train.schedule import OptimizerSpec
     from mdctgan_tpu_torch.train.state import create_train_state
@@ -82,16 +84,19 @@ def sgd_step(opt: Mapping, nets: Mapping[str, torch.nn.Module], transform,
 
     tro = train_options(opt)
     dtype = next(nets["G"].parameters()).dtype
-    sgd = OptimizerSpec(functools.partial(torch.optim.SGD, lr=1.0))
-    state = create_train_state(nets["G"], nets["D"], sgd, sgd, device=device, ranks=ranks)
+    if tx is None:
+        tx = OptimizerSpec(functools.partial(torch.optim.SGD, lr=1.0))
+    state = create_train_state(nets["G"], nets["D"], tx, tx, device=device, ranks=ranks)
     step = build_train_step(
-        transform, sgd, sgd, use_lsgan=not tro["no_lsgan"], lambda_feat=tro["lambda_feat"],
+        transform, tx, tx, use_lsgan=not tro["no_lsgan"], lambda_feat=tro["lambda_feat"],
         n_layers_d=tro["n_layers_D"], num_d=tro["num_D"],
         use_ganfeat=not tro["no_ganFeat_loss"], allow_tf32=allow_tf32, ranks=ranks)
     before = {n: {k: p.detach().clone() for k, p in m.named_parameters()}
               for n, m in nets.items()}
     state, metrics = step(state, {k: torch.from_numpy(v).to(device, dtype)
                                   for k, v in batch.items()}, sample_mask=sample_mask)
+    if state.step != 1:
+        raise AssertionError(f"the step count is {state.step} after one step")
     grads = {n: {k: (before[n][k] - p.detach()).cpu().double()
                  for k, p in m.named_parameters()} for n, m in nets.items()}
     return {k: float(v) for k, v in metrics.items()}, grads

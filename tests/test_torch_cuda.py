@@ -168,12 +168,18 @@ def test_fft_kernels_match_float64_plain(cuda, n_fft):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_fft,t,frames,batch", [(480, 24000, 100, 2), (960, 60960, 128, 8),
                                                   (200, 24000, 100, 2), (4096, 16384, 8, 2),
-                                                  (5568, 22272, 8, 2), (32, 24000, 100, 2)])
+                                                  ("limit", None, 8, 2), (32, 24000, 100, 2)])
 def test_dense_kernels_match_float64_plain(cuda, n_fft, t, frames, batch):
     # N = 480, 960 (hops of 10 ms at 24 and 48 kHz) and 200 (N/2 not a
     # multiple of 8) are not powers of two: the wrappers pick the dense form;
     # so they do for 4096 (a power of two above the FFT form's 2048), for the
-    # largest N the dense form takes on an H100 (5568) and for 32 (below 64)
+    # largest N the dense form takes on this card ("limit": 5568 on an H100,
+    # T = 8 hops) and for 32 (below 64)
+    if n_fft == "limit":
+        n_fft = K.dense_max_n(cuda)
+        if "H100" in torch.cuda.get_device_name(cuda):
+            assert n_fft == 5568
+        t = 8 * (n_fft // 2)
     rng = np.random.default_rng(n_fft)
     _k1_k2_against_float64(cuda, rng, n_fft, t, frames,
                            ("mdct_spectro_dense", "imdct_audio_dense"), batch)

@@ -139,6 +139,28 @@ def test_fused_mdct_on_raises_above_the_limit():
         assert not tfeat.fused_compatible(spectral_config_from_opt(dict(_cfg(n))))
 
 
+def test_fused_mdct_on_takes_the_named_cards_limit(monkeypatch):
+    """Where ``--gpu_ids`` names a card of this host, ``--fused_mdct on``
+    is held to that card's limit: on a 99 KB card (1728) n_fft 4096 raises,
+    which sm_90's limit admits; with ``--gpu_ids -1`` (the CPU) or a card
+    this host lacks, sm_90's limit holds."""
+    props = type("Props", (), {"shared_memory_per_block_optin": 101376})()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda index: props)
+    K._card_smem_optin.cache_clear()
+    try:
+        with pytest.raises(ValueError, match="n_fft at most 1728"):
+            spectral_config_from_opt(dict(_cfg(4096), fused_mdct="on", gpu_ids=[0]))
+        assert spectral_config_from_opt(dict(_cfg(1728), fused_mdct="on",
+                                             gpu_ids=[0])).n_fft == 1728
+        for ids in ([], [1]):
+            assert spectral_config_from_opt(dict(_cfg(4096), fused_mdct="on",
+                                                 gpu_ids=ids)).n_fft == 4096
+    finally:
+        K._card_smem_optin.cache_clear()
+
+
 def test_n8192_runs_the_matmul_form_as_jax():
     """``SpectralTransform(device="cpu")`` at n_fft 8192 against the JAX
     package's XLA path on the same seeded input, at the matmul form's

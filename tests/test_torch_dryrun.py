@@ -17,7 +17,9 @@ from mdctgan_tpu.train.step import build_train_step as j_build_train_step
 
 from mdctgan_tpu_torch import api, dryrun
 from mdctgan_tpu_torch.configs import flagship_opt, tiny_opt
+from mdctgan_tpu_torch.ops import mdct_kernels as K
 from mdctgan_tpu_torch.options import spectral_config_from_opt
+from mdctgan_tpu_torch.train import grad_truth as GT
 from mdctgan_tpu_torch.weights import state_dict_from_jax
 
 from test_torch_train import _assert_losses, _assert_normwise
@@ -26,10 +28,10 @@ from test_torch_train import _assert_losses, _assert_normwise
 @pytest.fixture(scope="module")
 def jax_tiny():
     """The JAX dry run's state (``PRNGKey(0)``) and its Adam and SGD(1)
-    steps on one device, on ``dryrun.tiny_batch(2)``."""
+    steps on one device, on the batch of 2 ``dryrun_multichip(2)`` draws."""
     cfg = tiny_spectral()
     gen, disc = tiny_generator(), tiny_discriminator()
-    batch = dryrun.tiny_batch(2)
+    batch = GT.inputs("noise", np.random.default_rng(dryrun.SEED), 2, cfg.segment_length)
     out = {"batch": batch}
     for name, tx in (("adam", optax.adam(2e-4, b1=0.5)), ("sgd", optax.sgd(1.0))):
         state = j_create_train_state(
@@ -53,10 +55,12 @@ def test_tiny_opt_is_the_jax_tiny_configuration():
 
 def test_dryrun_multichip_two_gloo_ranks():
     """Two ranks of one sample each against one process on the batch of 2:
-    the JAX dry run's assertions pass; the losses are finite."""
-    metrics = dryrun.dryrun_multichip(2, device="cpu")
+    the JAX dry run's assertions pass; the losses are finite; each rank
+    reports its launches, none on the CPU."""
+    metrics, launches = dryrun.dryrun_multichip(2, device="cpu")
     assert set(metrics) >= {"loss_G", "loss_D"}
     assert all(np.isfinite(v) for v in metrics.values())
+    assert launches == [{name: 0 for name in K.LAUNCHES}] * 2
 
 
 def test_one_rank_step_matches_the_jax_tiny_step(jax_tiny):
@@ -67,13 +71,14 @@ def test_one_rank_step_matches_the_jax_tiny_step(jax_tiny):
     mesh."""
     g_params, g_stats, d_params = jax_tiny["init"]
     g_sd, d_sd = state_dict_from_jax(g_params, g_stats), state_dict_from_jax(d_params, {})
-    metrics, _ = dryrun.train_step_once(dryrun._ADAM, g_sd, d_sd, jax_tiny["batch"], "cpu")
+    metrics, _ = dryrun.tiny_step(dryrun._ADAM, g_sd, d_sd, jax_tiny["batch"], "cpu")
     _assert_losses(jax_tiny["adam"][1], metrics, 5e-3)
-    _, g_after = dryrun.train_step_once(dryrun._SGD, g_sd, d_sd, jax_tiny["batch"], "cpu")
+    _, update = dryrun.tiny_step(dryrun._SGD, g_sd, d_sd, jax_tiny["batch"], "cpu")
     sub = jax.tree.map(lambda a, b: np.asarray(a) - np.asarray(b), g_params,
                        jax_tiny["sgd"][0])
     ref = {k: v.numpy() for k, v in state_dict_from_jax(sub, {}).items()}
-    got = {k: g_sd[k].numpy() - g_after[k] for k in ref}
+    assert set(update) == set(ref)
+    got = {k: update[k] for k in ref}
     _assert_normwise(ref, got, 2e-3, 5e-5, "generator")
 
 
