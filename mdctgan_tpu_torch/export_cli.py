@@ -19,12 +19,23 @@ the matmul form elsewhere), so the program launches the hand-written
 kernels on the card and runs their plain versions on the CPU.
 
 Device: ``cuda:<gpu_ids>`` (the first id; default 0, raising without CUDA),
-or the CPU with ``--gpu_ids -1``.  ``--export_platforms`` must name that
-device: ``tpu`` (the flag's default, kept so that ``opt.txt`` reads as the
-JAX package's) and ``cuda`` name the card, ``cpu`` the CPU; one that
-disagrees with the device raises ``ValueError``, and a list of several
-raises ``NotImplementedError``: a program holds one device's weights and
-kernels.
+or the CPU with ``--gpu_ids -1``.  ``--export_platforms`` lists the
+platforms the program is for: ``tpu`` (the flag's default, kept so that
+``opt.txt`` reads as the JAX package's) and ``cuda`` name the card, ``cpu``
+the CPU.  The export device's platform must be in the list; an empty or
+unknown name, or a list without it, raises ``ValueError``.  The file
+records the list (``serve_export.RECORD``), so one program serves on any
+platform it names: ``serve_export.load(path, device=)`` places its state
+and every node that names a device there.  A program exported on the card
+for a list that names the CPU is moved to the CPU before the save
+(``torch.export.passes.move_to_device_pass``), so that a host without a
+card can read it; one copy of the weights is held either way.
+
+The JAX package turns ``--fused_mdct auto`` off for any artifact but a
+``tpu`` one, because its Pallas kernels lower for the TPU alone.  Here K1
+and K2 stay operator nodes on every platform (``fused_compatible`` decides,
+as for one platform): their CPU kernel is the plain version, their CUDA
+kernel the hand-written one, chosen where the program runs.
 
 Reload with ``serve_export.load`` (or ``torch.export.load`` after
 ``import mdctgan_tpu_torch.ops.mdct_kernels``): no other model code is
@@ -33,22 +44,22 @@ needed.
 
 from __future__ import annotations
 
+import json
 import os
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
+from torch.export.passes import move_to_device_pass
 
 from mdctgan_tpu_torch.device import float32_policy
 from mdctgan_tpu_torch.models.generator import build_generator
 from mdctgan_tpu_torch.ops.features import SpectralTransform
 from mdctgan_tpu_torch.options import TrainOptions, serving_devices, spectral_config_from_opt
+from mdctgan_tpu_torch.serve_export import PLATFORMS, RECORD
 from mdctgan_tpu_torch.train.restore import load_generator_state
 from mdctgan_tpu_torch.train.step import InferenceModule
-
-# the device type that each name of --export_platforms asks for
-PLATFORMS = {"tpu": "cuda", "cuda": "cuda", "cpu": "cpu"}
 
 
 class ServingProgram(nn.Module):
@@ -76,21 +87,24 @@ class ServingProgram(nn.Module):
         return torch.func.functional_call(self._body[0], state, (lr_segments,))[1]
 
 
+def parse_platforms(opt) -> List[str]:
+    """``--export_platforms`` as a list of names, each one of
+    ``PLATFORMS``."""
+    platforms = [p.strip() for p in opt.export_platforms.split(",")]
+    if not all(p in PLATFORMS for p in platforms):
+        raise ValueError(f"--export_platforms {opt.export_platforms!r}: expected names "
+                         f"from {', '.join(PLATFORMS)}")
+    return platforms
+
+
 def export_device(opt) -> torch.device:
     """The device ``--gpu_ids`` asks for (``options.serving_devices``, the
     first), checked against ``--export_platforms``."""
-    platforms = [p.strip() for p in opt.export_platforms.split(",") if p.strip()]
-    if len(platforms) > 1:
-        raise NotImplementedError(
-            f"--export_platforms {opt.export_platforms}: a program holds one device's "
-            "weights and kernels; export once for each")
-    if not platforms or platforms[0] not in PLATFORMS:
-        raise ValueError(f"--export_platforms {opt.export_platforms!r}: expected one of "
-                         f"{', '.join(PLATFORMS)}")
+    platforms = parse_platforms(opt)
     device = serving_devices(opt)[0]
-    if device.type != PLATFORMS[platforms[0]]:
-        raise ValueError(f"--export_platforms {platforms[0]} asks for {PLATFORMS[platforms[0]]}, "
-                         f"but --gpu_ids gives {device} (-1 is the CPU)")
+    if device.type not in {PLATFORMS[p] for p in platforms}:
+        raise ValueError(f"--export_platforms {opt.export_platforms} does not name "
+                         f"{device.type}, which --gpu_ids gives ({device}; -1 is the CPU)")
     return device
 
 
@@ -114,21 +128,26 @@ def export_inference(opt) -> torch.export.ExportedProgram:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Run the CLI on ``argv`` (``sys.argv`` when None).  Returns the
-    program's ``path``, its ``bytes``, ``export_s`` (build, restore and
-    export, by the host clock) and its ``device``."""
+    program's ``path``, its ``bytes``, ``export_s`` (build, restore,
+    export and any move of the state, by the host clock), its export
+    ``device`` and its ``platforms``."""
     opt = TrainOptions().parse(argv, save=False)
     if not opt.export_path:
         raise SystemExit("--export_path is required")
     device = export_device(opt)
+    platforms = parse_platforms(opt)
     t0 = time.perf_counter()
     program = export_inference(opt)
+    if device.type == "cuda" and "cpu" in {PLATFORMS[p] for p in platforms}:
+        # a host without a card reads the state from the CPU
+        program = move_to_device_pass(program, "cpu")
     export_s = time.perf_counter() - t0
-    torch.export.save(program, opt.export_path)
+    torch.export.save(program, opt.export_path, extra_files={RECORD: json.dumps(platforms)})
     size = os.path.getsize(opt.export_path)
-    print(f"wrote {size} bytes of torch.export program ({device}, batch "
-          f"{opt.export_batch}) to {opt.export_path}")
+    print(f"wrote {size} bytes of torch.export program ({','.join(platforms)}, exported "
+          f"on {device}, batch {opt.export_batch}) to {opt.export_path}")
     return {"path": opt.export_path, "bytes": size, "export_s": export_s,
-            "device": str(device)}
+            "device": str(device), "platforms": platforms}
 
 
 if __name__ == "__main__":

@@ -246,7 +246,10 @@ class TrainOptions(BaseOptions):
                        help="micro-batches averaged into each optimizer update")
         p.add_argument("--export_path", type=str, default="")
         p.add_argument("--export_batch", type=int, default=8)
-        p.add_argument("--export_platforms", type=str, default="tpu")
+        p.add_argument("--export_platforms", type=str, default="tpu",
+                       help="the platforms the serving export is for, comma-separated: "
+                            "tpu and cuda name the card, cpu the CPU; it must name the "
+                            "device --gpu_ids gives")
         p.add_argument("--jax_cache_dir", type=str,
                        default=os.path.expanduser("~/.cache/mdctgan_tpu_xla"),
                        help="the JAX package's compilation cache; ignored")

@@ -417,15 +417,10 @@ def test_small_train_cli_on_card_matches_cpu(cuda, tmp_path):
         assert card["losses"][0][k] == pytest.approx(ref, rel=1e-3), k
 
 
-@pytest.mark.cuda
-def test_small_export_on_card_launches_k1_and_k2(cuda, tmp_path):
-    """``export_cli`` on the card at small geometry (``netG local``, whose
-    coarse branch is named ``global``), loaded by ``serve_export.load``:
-    one K1 and one K2 launch a call, the FFT forms, through the registered
-    operators, and the SR within 2e-3 of its largest value of the port's
-    inference on the CPU from the same ``.pth``."""
-    from mdctgan_tpu_torch import export_cli, serve_export
-
+def _small_pth(tmp_path, rng):
+    """Seeded small ``netG local`` weights (whose coarse branch is named
+    ``global``) as a reference-layout ``.pth``; the export flags, options
+    and state dict."""
     flags = ["--lr_sampling_rate", "16000", "--center", "--arcsinh_transform",
              "--abs_spectro", "--abs_norm", "--norm_range", "-1", "1", "--fit_residual",
              "--netG", "local", "--ngf", "4", "--n_downsample_global", "2",
@@ -434,13 +429,26 @@ def test_small_export_on_card_launches_k1_and_k2(cuda, tmp_path):
              "--n_fft", "128", "--hop_length", "64", "--win_length", "128", "--bins", "128",
              "--export_batch", "2", "--checkpoints_dir", str(tmp_path / "out"),
              "--load_pretrain", str(tmp_path / "pre")]
-    rng = np.random.default_rng(4)
     opt = TrainOptions().parse(flags, save=False)
     gen = build_generator(opt)
     state = state_dict_from_jax(*random_jax_trees(gen, rng))
     (tmp_path / "pre").mkdir()
     torch.save(export_to_torch_keys(state, generator_entries_for(gen)),
                tmp_path / "pre" / "latest_net_G.pth")
+    return flags, opt, state
+
+
+@pytest.mark.cuda
+def test_small_export_on_card_launches_k1_and_k2(cuda, tmp_path):
+    """``export_cli`` on the card at small geometry, loaded by
+    ``serve_export.load``: one K1 and one K2 launch a call, the FFT forms,
+    through the registered operators, and the SR within 2e-3 of its largest
+    value of the port's inference on the CPU from the same ``.pth``."""
+    from mdctgan_tpu_torch import export_cli, serve_export
+
+    rng = np.random.default_rng(4)
+    flags, opt, state = _small_pth(tmp_path, rng)
+    gen = build_generator(opt)
     written = export_cli.main(flags + ["--export_path", str(tmp_path / "m.pt2")])
     assert written["device"] == "cuda:0"
     serve = serve_export.load(written["path"])
@@ -455,3 +463,39 @@ def test_small_export_on_card_launches_k1_and_k2(cuda, tmp_path):
                                 out_length=8128)(x)
     scale = float(ref.abs().max())
     assert float((got.cpu() - ref).abs().max()) <= 2e-3 * scale
+
+
+@pytest.mark.cuda
+def test_small_multi_platform_export_serves_on_card_and_cpu(cuda, tmp_path):
+    """``--export_platforms tpu,cpu`` exported on the card: one file whose
+    state lies on the CPU; ``load`` places it on the card by default (one K1
+    and one K2 launch a call) and on the CPU when asked (no launch), each
+    against ``model.inference`` on its device within 2e-3 of its largest
+    value; no node of the CPU program names the card."""
+    from mdctgan_tpu_torch import export_cli, serve_export
+
+    rng = np.random.default_rng(5)
+    flags, opt, state = _small_pth(tmp_path, rng)
+    written = export_cli.main(flags + ["--export_platforms", "tpu,cpu",
+                                       "--export_path", str(tmp_path / "m.pt2")])
+    assert written["device"] == "cuda:0" and written["platforms"] == ["tpu", "cpu"]
+    assert {t.device.type for t in torch.export.load(written["path"]).state_dict.values()} \
+        == {"cpu"}
+    x = torch.from_numpy((0.05 * rng.standard_normal((2, 8128))).astype(np.float32))
+    for device, launches in ((None, 1), ("cpu", 0)):
+        serve = serve_export.load(written["path"], device=device)
+        on = cuda if device is None else torch.device("cpu")
+        K.reset_launch_counts()
+        got = serve(x.to(on))
+        if on.type == "cuda":
+            torch.cuda.synchronize()
+        assert got.device.type == on.type
+        assert K.LAUNCHES == {"mdct_spectro": launches, "imdct_audio": launches,
+                              "mdct_spectro_dense": 0, "imdct_audio_dense": 0}
+        with torch.inference_mode():
+            ref = api.create_model(opt, on, state_dict=state).inference(x.to(on))[1]
+        scale = float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= 2e-3 * scale
+    named = [n.name for n in torch.export.load(written["path"]).graph.nodes
+             if "cuda" in str((n.args, n.kwargs, getattr(n.meta.get("val"), "device", "")))]
+    assert not named, named

@@ -11,7 +11,10 @@ with JAX's within 2e-3 of the waveform's largest value, the bound of
 bit for bit, in float32 and with ``--fp16``; it reloads in a fresh process
 that imports no model code; its graph holds K1 and K2 as operator nodes
 where the configuration runs them; another batch raises; the platform
-flag's rules hold; and both operators pass ``torch.library.opcheck``.
+flag's rules hold; the ``--export_platforms tpu,cpu`` program, loaded on
+the CPU, agrees with the JAX package's ``tpu,cpu`` artifact and equals
+the ``cpu`` program, and ``serve_export.load`` places it only on a
+platform it records; and both operators pass ``torch.library.opcheck``.
 
 Sizes: ``netG local`` (the flagship's layout, whose coarse branch is named
 ``global``) at the geometry of ``tests/test_torch_serve.py`` (n_fft 128,
@@ -22,6 +25,7 @@ that gives the generator 128 frames.  Each export happens once per module
 (fixture).
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -70,17 +74,18 @@ CONFIGS = {
 K1_NODE, K2_NODE = torch.ops.mdctgan.mdct_spectro.default, torch.ops.mdctgan.imdct_audio.default
 
 
-def _args(case, flags_only=False):
+def _args(case, flags_only=False, platforms="cpu"):
     args = CONFIGS[case["config"]] + ["--checkpoints_dir", str(case["root"] / "unused")]
     return args if flags_only else args + ["--load_pretrain", str(case["pretrain"]),
-                                           "--export_platforms", "cpu"]
+                                           "--export_platforms", platforms]
 
 
 @pytest.fixture(scope="module")
 def exported(tmp_path_factory):
     """For each configuration: seeded Flax weights as a reference ``.pth``,
-    seeded LR segments, the JAX export's SR of them, and the port's
-    programs (float32 and ``--fp16``) with what ``main`` returned."""
+    seeded LR segments, the SR of them by the JAX exports for ``cpu`` and
+    for ``tpu,cpu``, and the port's programs (float32, ``--fp16``, and
+    float32 for ``tpu,cpu``) with what ``main`` returned."""
     root = tmp_path_factory.mktemp("export_cli")
     rng = np.random.default_rng(21)
     out = {}
@@ -99,11 +104,13 @@ def exported(tmp_path_factory):
                                               jimp.generator_entries_for(flax_g)).items()},
                    case["pretrain"] / "latest_net_G.pth")
         lr = (0.05 * rng.standard_normal((BATCH, jopt.segment_length))).astype(np.float32)
-        blob = jexport.export_inference(JTrainOptions().parse(_args(case), save=False))
-        case.update(
-            state=state_dict_from_jax(params, stats), lr=lr,
-            jax_sr=np.asarray(jax.export.deserialize(blob).call(jnp.asarray(lr))))
-        for label, extra in (("f32", []), ("fp16", ["--fp16"])):
+        case.update(state=state_dict_from_jax(params, stats), lr=lr)
+        for label, platforms in (("jax_sr", "cpu"), ("jax_multi_sr", "tpu,cpu")):
+            blob = jexport.export_inference(JTrainOptions().parse(
+                _args(case, platforms=platforms), save=False))
+            case[label] = np.asarray(jax.export.deserialize(blob).call(jnp.asarray(lr)))
+        for label, extra in (("f32", []), ("fp16", ["--fp16"]),
+                             ("multi", ["--export_platforms", "tpu,cpu"])):
             path = root / f"{config}_{label}.pt2"
             case[label] = export_cli.main(_args(case) + extra + [
                 "--gpu_ids", "-1", "--export_path", str(path)])
@@ -133,6 +140,67 @@ def test_cpu_program_matches_the_jax_export(exported, config):
 
 
 @pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_multi_platform_program_matches_the_jax_export(exported, config):
+    """``--export_platforms tpu,cpu``: the JAX package's artifact for both
+    platforms, called on the CPU, against the port's program for both,
+    loaded on the CPU."""
+    case = exported[config]
+    assert case["multi"]["platforms"] == ["tpu", "cpu"] and case["multi"]["device"] == "cpu"
+    got = serve_export.load(case["multi"]["path"], device="cpu")(
+        torch.from_numpy(case["lr"])).numpy()
+    ref = case["jax_multi_sr"]
+    assert got.shape == ref.shape == case["lr"].shape
+    scale = float(np.abs(ref).max())
+    assert scale > 0
+    np.testing.assert_allclose(got, ref, atol=2e-3 * scale)
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_multi_platform_program_equals_the_cpu_program(exported, config):
+    """One graph and one copy of the weights whatever the list: the
+    ``tpu,cpu`` program on the CPU is the ``cpu`` program bit for bit, and
+    its file holds the weights once."""
+    case = exported[config]
+    x = torch.from_numpy(case["lr"])
+    got = serve_export.load(case["multi"]["path"], device="cpu")(x)
+    torch.testing.assert_close(got, serve_export.load(case["f32"]["path"])(x), rtol=0, atol=0)
+    assert abs(case["multi"]["bytes"] - case["f32"]["bytes"]) < 0.01 * case["f32"]["bytes"]
+
+
+def test_load_places_and_refuses_by_platform(exported, monkeypatch, tmp_path):
+    """The recorded platforms decide where ``load`` may place a program:
+    by default the first (the card, which this host lacks); a device the
+    program does not name raises ``ValueError``; a program written without
+    a record runs on the device of its weights, as before the record."""
+    case = exported["fused"]
+    multi, single = case["multi"]["path"], case["f32"]["path"]
+    assert serve_export.platforms_of(multi) == ["tpu", "cpu"]
+    assert serve_export.platforms_of(single) == ["cpu"]
+    x = torch.from_numpy(case["lr"])
+    ref = serve_export.load(single)(x)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve_export.load(multi, device=device)
+    with pytest.raises(ValueError, match="unsupported"):
+        serve_export.load(multi, device="meta")
+    # a host with a card: the CPU program refuses it before any move
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="cpu"):
+        serve_export.load(single, device="cuda:0")
+    # no record: saved as before this record existed
+    bare = tmp_path / "bare.pt2"
+    torch.export.save(torch.export.load(single), bare)
+    assert serve_export.platforms_of(str(bare)) is None
+    with pytest.raises(ValueError, match="is for cpu"):
+        serve_export.load(str(bare), device="cuda:0")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cpu"):
+        torch.testing.assert_close(serve_export.load(str(bare), device=device)(x), ref,
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS))
 @pytest.mark.parametrize("label", ["f32", "fp16"])
 def test_program_equals_the_ports_inference_fn(exported, config, label):
     """The program and ``build_inference_fn`` run one module
@@ -146,15 +214,28 @@ def test_program_equals_the_ports_inference_fn(exported, config, label):
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
-def test_program_serves_in_a_fresh_process_with_only_the_ops(exported, tmp_path):
+@pytest.mark.parametrize("label,device", [("f32", None), ("multi", "cpu")])
+def test_program_serves_in_a_fresh_process_with_only_the_ops(exported, tmp_path, label,
+                                                             device):
+    """The CPU program, and the ``tpu,cpu`` program on the CPU, in a process
+    that sees no card and imports no model code; there the ``tpu,cpu``
+    program's default device (the card) raises."""
     case = exported["fused"]
+    path = case[label]["path"]
     np.save(tmp_path / "lr.npy", case["lr"])
     code = (
         "import sys, numpy as np, torch\n"
         "from mdctgan_tpu_torch.serve_export import load\n"
-        f"serve = load({case['f32']['path']!r})\n"
+        f"serve = load({path!r}, device={device!r})\n"
         f"np.save({str(tmp_path / 'sr.npy')!r}, "
         f"serve(torch.from_numpy(np.load({str(tmp_path / 'lr.npy')!r}))).numpy())\n"
+        "if " + repr(device is not None) + ":\n"
+        "    try:\n"
+        f"        load({path!r})\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'CUDA' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError('the default device served without a card')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{_BANNED!r})\n"
         "assert not bad, bad\n"
@@ -165,7 +246,8 @@ def test_program_serves_in_a_fresh_process_with_only_the_ops(exported, tmp_path)
         "'mdctgan_tpu_torch.ops.window', 'mdctgan_tpu_torch.serve_export'], port\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                          text=True, timeout=300)
+                          text=True, timeout=300,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode == 0, proc.stderr
     _, ref = _port_inference(case)(torch.from_numpy(case["lr"]))
     np.testing.assert_array_equal(np.load(tmp_path / "sr.npy"), ref.numpy())
@@ -203,7 +285,11 @@ def test_program_refuses_another_batch(exported):
 
 @pytest.mark.parametrize("platforms,gpu_ids,error", [
     ("cpu", "-1", None),
-    ("tpu,cpu", "-1", NotImplementedError),
+    ("tpu,cpu", "-1", None),
+    ("cuda,cpu", "-1", None),
+    ("cpu,gpu", "-1", ValueError),
+    ("tpu,", "-1", ValueError),
+    ("cuda,cpu", "0", RuntimeError),  # no CUDA
     ("cuda", "-1", ValueError),
     ("tpu", "-1", ValueError),
     ("gpu", "-1", ValueError),
