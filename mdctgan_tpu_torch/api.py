@@ -26,6 +26,7 @@ from mdctgan_tpu_torch.ops.resample import degrade_lr, resample
 from mdctgan_tpu_torch.options import as_dict, spectral_config_from_opt
 from mdctgan_tpu_torch.parallel.mesh import Mesh
 from mdctgan_tpu_torch.train.step import build_inference_fn
+from mdctgan_tpu_torch.utils import tracing
 from mdctgan_tpu_torch.weights import init_weights
 
 # Segment batches in flight in ``serve_segments``: the host enqueues batch
@@ -106,7 +107,13 @@ def serve_segments(model: Union[Model, Sequence[Model]], segments: np.ndarray,
     pseudo-phase from its own ``phase(i)`` at the batch's shape and keeping
     its rows, so the draws are the one device's; the shares are gathered on
     the first replica's device.  ``batch_size`` must divide by their
-    number."""
+    number.
+
+    Traced (``utils/tracing.py``): a span ``serve.batch`` a batch (pin,
+    upload, the inference's launches, the download's launch) and
+    ``serve.wait`` where the host blocks on a batch's event; the counters
+    ``serve.rows`` (segment rows sent to the generator, padding included)
+    and ``serve.padded_rows``."""
     replicas = [model] if isinstance(model, Model) else list(model)
     n_rep = len(replicas)
     if batch_size % n_rep:
@@ -126,28 +133,32 @@ def serve_segments(model: Union[Model, Sequence[Model]], segments: np.ndarray,
     def drain_one():
         i, host, done = pending.popleft()
         if done is not None:
-            done.synchronize()
+            with tracing.span("serve.wait"):
+                done.synchronize()
         out[i : i + batch_size] = host.numpy()
 
+    tracing.count("serve.rows", len(segments))
+    tracing.count("serve.padded_rows", n_pad)
     for i in range(0, len(segments), batch_size):
-        parts = []
-        for j, rep in enumerate(replicas):
-            x = torch.from_numpy(segments[i + j * share: i + (j + 1) * share])
-            if rep.device.type == "cuda":
-                x = x.pin_memory().to(rep.device, non_blocking=True)
-            rows = None if n_rep == 1 else (j * share, batch_size)
-            _, sr = rep.inference(x, None if phase is None else phase(i), rows)
-            parts.append(sr)
-        sr_audio = parts[0] if n_rep == 1 else torch.cat(
-            [p.to(first.device, non_blocking=True) for p in parts])
-        if on_card:
-            host = torch.empty(sr_audio.shape, dtype=sr_audio.dtype, pin_memory=True)
-            with torch.cuda.device(first.device):  # the event on the copy's stream
-                host.copy_(sr_audio, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-        else:
-            host, done = sr_audio, None
+        with tracing.span("serve.batch"):
+            parts = []
+            for j, rep in enumerate(replicas):
+                x = torch.from_numpy(segments[i + j * share: i + (j + 1) * share])
+                if rep.device.type == "cuda":
+                    x = x.pin_memory().to(rep.device, non_blocking=True)
+                rows = None if n_rep == 1 else (j * share, batch_size)
+                _, sr = rep.inference(x, None if phase is None else phase(i), rows)
+                parts.append(sr)
+            sr_audio = parts[0] if n_rep == 1 else torch.cat(
+                [p.to(first.device, non_blocking=True) for p in parts])
+            if on_card:
+                host = torch.empty(sr_audio.shape, dtype=sr_audio.dtype, pin_memory=True)
+                with torch.cuda.device(first.device):  # the event on the copy's stream
+                    host.copy_(sr_audio, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+            else:
+                host, done = sr_audio, None
         pending.append((i, host, done))
         if len(pending) == IN_FLIGHT:
             drain_one()
@@ -172,18 +183,31 @@ def upsample(
 
     ``mesh``: serve data-parallel over its devices, ``model`` copied to
     each (``replicate``, on every call; a server replicates once and calls
-    ``serve_segments``); ``batch_size`` must divide by the mesh size."""
+    ``serve_segments``); ``batch_size`` must divide by the mesh size.
+
+    Traced: the root span ``upsample`` a request, with ``upsample.lr``,
+    ``upsample.to_host`` (the host waits for the resample),
+    ``upsample.segment``, ``serve_segments``' spans and
+    ``upsample.stitch``."""
     cfg = model.transform.cfg
     if mesh is not None and batch_size % mesh.size:
         raise ValueError(f"batch_size {batch_size} not divisible by mesh size {mesh.size}")
-    replicas = model if mesh is None else replicate(model, mesh)
-    ds = AudioAppDataset(audio, sample_rate, cfg.segment_length, gen_overlap)
-    raw = torch.from_numpy(ds.raw_audio)[None].to(model.device)
-    with torch.inference_mode(), float32_policy():
-        if is_lr_input:
-            lr = resample(raw, sample_rate, cfg.hr_sampling_rate)
-        else:
-            lr = degrade_lr(raw, sample_rate, cfg.lr_sampling_rate, cfg.hr_sampling_rate)
-    sr_segments = serve_segments(replicas, ds.segments_of(lr[0].cpu().numpy()), batch_size)
-    out_len = int(round(len(ds.raw_audio) * cfg.hr_sampling_rate / sample_rate))
-    return ds.stitch(sr_segments)[:out_len]
+    with tracing.span("upsample"):
+        replicas = model if mesh is None else replicate(model, mesh)
+        ds = AudioAppDataset(audio, sample_rate, cfg.segment_length, gen_overlap)
+        with tracing.span("upsample.lr"):
+            raw = torch.from_numpy(ds.raw_audio)[None].to(model.device)
+            with torch.inference_mode(), float32_policy():
+                if is_lr_input:
+                    lr = resample(raw, sample_rate, cfg.hr_sampling_rate)
+                else:
+                    lr = degrade_lr(raw, sample_rate, cfg.lr_sampling_rate,
+                                    cfg.hr_sampling_rate)
+        with tracing.span("upsample.to_host"):  # the host waits for the card here
+            lr_host = lr[0].cpu().numpy()
+        with tracing.span("upsample.segment"):
+            segments = ds.segments_of(lr_host)
+        sr_segments = serve_segments(replicas, segments, batch_size)
+        with tracing.span("upsample.stitch"):
+            out_len = int(round(len(ds.raw_audio) * cfg.hr_sampling_rate / sample_rate))
+            return ds.stitch(sr_segments)[:out_len]

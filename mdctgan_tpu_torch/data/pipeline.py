@@ -45,6 +45,7 @@ from mdctgan_tpu_torch.device import resolve_device
 from mdctgan_tpu_torch.ops.features import SpectralConfig
 from mdctgan_tpu_torch.ops.resample import add_noise_snr, degrade_lr, fix_length, resample
 from mdctgan_tpu_torch.parallel import mesh
+from mdctgan_tpu_torch.utils import tracing
 
 Degrade = Callable[[torch.Tensor, torch.Generator], Dict[str, torch.Tensor]]
 
@@ -177,26 +178,33 @@ class InputPipeline:
         return self
 
     def _next_host(self) -> Tuple[torch.Tensor, np.ndarray]:
-        while True:
-            if self._queue.empty() and self._error is not None:
-                raise RuntimeError("input pipeline worker failed") from self._error
-            if self._stop.is_set() and self._queue.empty():
-                raise StopIteration
-            try:
-                return self._queue.get(timeout=1.0)
-            except queue.Empty:
-                if not self._thread.is_alive():
-                    if self._error is not None:
-                        raise RuntimeError("input pipeline worker failed") from self._error
+        """The next host batch, blocking until the worker has one: the span
+        ``pipeline.queue_wait``; the counters ``pipeline.gets`` and
+        ``pipeline.depth`` (batches ready before each get)."""
+        depth = self._queue.qsize()
+        tracing.count("pipeline.gets")
+        tracing.count("pipeline.depth", depth)
+        with tracing.span("pipeline.queue_wait"):
+            while True:
+                if self._queue.empty() and self._error is not None:
+                    raise RuntimeError("input pipeline worker failed") from self._error
+                if self._stop.is_set() and self._queue.empty():
                     raise StopIteration
+                try:
+                    return self._queue.get(timeout=1.0)
+                except queue.Empty:
+                    if not self._thread.is_alive():
+                        if self._error is not None:
+                            raise RuntimeError("input pipeline worker failed") from self._error
+                        raise StopIteration
 
     def __next__(self) -> Dict[str, torch.Tensor]:
         """The next batch on the device: ``{"hr_audio", "lr_audio"}``, each
         (batch_size, segment_length) float32, or this rank's rows of it."""
         wave, rates = self._next_host()
-        with torch.no_grad():
+        with tracing.span("pipeline.degrade"), torch.no_grad():
             batch = self._degrade_batch(wave.to(self.device, non_blocking=True), rates)
-        return mesh.put_global_batch(batch, self.ranks)
+            return mesh.put_global_batch(batch, self.ranks)
 
     def close(self) -> None:
         """Stop the worker, then destroy the prefetcher, or leak it where the

@@ -32,6 +32,7 @@ from mdctgan_tpu_torch.ops.features import SpectralTransform
 from mdctgan_tpu_torch.parallel import mesh
 from mdctgan_tpu_torch.train.schedule import OptimizerSpec
 from mdctgan_tpu_torch.train.state import GANTrainState
+from mdctgan_tpu_torch.utils import tracing
 
 
 def generator_forward(
@@ -96,7 +97,9 @@ def build_train_step(
     (B,) 0/1 weights every loss term per sample and masks the BatchNorm
     statistics: a padded tail batch steps as the smaller batch would.
     ``mark(name)``, when given, is called after each part of the step
-    ("k1", "g_forward", "d_forward", "backward", "optimizer") for timing.
+    ("k1", "g_forward", "d_forward", "backward", "optimizer") for timing;
+    the call is the last of the part's span (``utils/tracing.py``), named
+    ``step.<part>`` under the step's root span ``step``.
     The step runs under ``float32_policy(allow_tf32)``: TF32 off unless a
     caller asks for it to read what it costs.
 
@@ -118,82 +121,89 @@ def build_train_step(
                    pool_mask: Optional[torch.Tensor] = None,
                    sample_mask: Optional[torch.Tensor] = None,
                    mark: Optional[Callable[[str], None]] = None):
-        with float32_policy(allow_tf32):
+        with tracing.span("step"), float32_policy(allow_tf32):
             return step_body(state, batch, pool_old, pool_mask, sample_mask,
                              mark or (lambda name: None))
 
     def step_body(state, batch, pool_old, pool_mask, sample_mask, mark):
-        gen, disc = state.generator, state.discriminator
-        bsz = batch["lr_audio"].shape[0]
-        rows = total = None
-        if ranks is not None:
-            rows = ranks.global_rows(bsz)
-            # the global batch's weight, the losses' common denominator
-            total = (sample_mask.sum().reshape(1) if sample_mask is not None
-                     else torch.full((1,), float(bsz), device=batch["lr_audio"].device))
-            mesh.all_reduce_([total], ranks)
-            total = torch.clamp(total[0], min=1.0)
-        with torch.no_grad():
-            lr_spec, _, _ = transform.lr_forward(batch["lr_audio"], noise, rows)
-            hr_spec, _, _ = transform.hr_forward(batch["hr_audio"], noise, rows)
-        mark("k1")
+        # each part is the span step.<part> and ends with mark(<part>)
+        with tracing.span("step.k1"):
+            gen, disc = state.generator, state.discriminator
+            bsz = batch["lr_audio"].shape[0]
+            rows = total = None
+            if ranks is not None:
+                rows = ranks.global_rows(bsz)
+                # the global batch's weight, the losses' common denominator
+                total = (sample_mask.sum().reshape(1) if sample_mask is not None
+                         else torch.full((1,), float(bsz), device=batch["lr_audio"].device))
+                mesh.all_reduce_([total], ranks)
+                total = torch.clamp(total[0], min=1.0)
+            with torch.no_grad():
+                lr_spec, _, _ = transform.lr_forward(batch["lr_audio"], noise, rows)
+                hr_spec, _, _ = transform.hr_forward(batch["hr_audio"], noise, rows)
+            mark("k1")
 
-        gen.train()
-        sr_spec = generator_forward(gen, transform, lr_spec, sample_mask)
-        mark("g_forward")
+        with tracing.span("step.g_forward"):
+            gen.train()
+            sr_spec = generator_forward(gen, transform, lr_spec, sample_mask)
+            mark("g_forward")
 
-        frozen_d = {k: v.detach() for k, v in disc.named_parameters()}
-        pred_fake_g = torch.func.functional_call(disc, frozen_d, (d_concat(lr_spec, sr_spec),))
-        fake_concat = d_concat(lr_spec, sr_spec.detach())
-        if use_pool:
-            m = pool_mask.to(fake_concat.dtype).reshape(-1, 1, 1, 1)
-            d_fake_in = m * pool_old + (1.0 - m) * fake_concat
-        else:
-            d_fake_in = fake_concat
-        # D_fake and D_real share the live parameters: one 2B call, split
-        # back per scale and layer, fake rows first
-        both = disc(torch.cat((d_fake_in, d_concat(lr_spec, hr_spec)), dim=0))
-        pred_fake_d = [[f[:bsz] for f in scale] for scale in both]
-        pred_real = [[f[bsz:] for f in scale] for scale in both]
+        with tracing.span("step.d_forward"):
+            frozen_d = {k: v.detach() for k, v in disc.named_parameters()}
+            pred_fake_g = torch.func.functional_call(disc, frozen_d,
+                                                     (d_concat(lr_spec, sr_spec),))
+            fake_concat = d_concat(lr_spec, sr_spec.detach())
+            if use_pool:
+                m = pool_mask.to(fake_concat.dtype).reshape(-1, 1, 1, 1)
+                d_fake_in = m * pool_old + (1.0 - m) * fake_concat
+            else:
+                d_fake_in = fake_concat
+            # D_fake and D_real share the live parameters: one 2B call, split
+            # back per scale and layer, fake rows first
+            both = disc(torch.cat((d_fake_in, d_concat(lr_spec, hr_spec)), dim=0))
+            pred_fake_d = [[f[:bsz] for f in scale] for scale in both]
+            pred_real = [[f[bsz:] for f in scale] for scale in both]
 
-        weights = dict(sample_weight=sample_mask, total_weight=total)
-        loss_g_gan = gan_loss(pred_fake_g, True, use_lsgan, **weights)
-        loss_g_feat = (
-            feature_matching_loss(pred_fake_g, pred_real, n_layers_d, num_d,
-                                  lambda_feat, **weights)
-            if use_ganfeat else torch.zeros((), device=lr_spec.device))
-        loss_d_fake = gan_loss(pred_fake_d, False, use_lsgan, **weights)
-        loss_d_real = gan_loss(pred_real, True, use_lsgan, **weights)
-        loss_g = loss_g_gan + loss_g_feat
-        loss_d = 0.5 * (loss_d_fake + loss_d_real)
-        mark("d_forward")
+            weights = dict(sample_weight=sample_mask, total_weight=total)
+            loss_g_gan = gan_loss(pred_fake_g, True, use_lsgan, **weights)
+            loss_g_feat = (
+                feature_matching_loss(pred_fake_g, pred_real, n_layers_d, num_d,
+                                      lambda_feat, **weights)
+                if use_ganfeat else torch.zeros((), device=lr_spec.device))
+            loss_d_fake = gan_loss(pred_fake_d, False, use_lsgan, **weights)
+            loss_d_real = gan_loss(pred_real, True, use_lsgan, **weights)
+            loss_g = loss_g_gan + loss_g_feat
+            loss_d = 0.5 * (loss_d_fake + loss_d_real)
+            mark("d_forward")
 
-        metrics = {
-            "G_GAN": loss_g_gan, "G_GAN_Feat": loss_g_feat,
-            "D_real": loss_d_real, "D_fake": loss_d_fake,
-            "loss_G": loss_g, "loss_D": loss_d,
-        }
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        g_params, d_params = _params(state.g_opt), _params(state.d_opt)
-        grads = torch.autograd.grad(loss_g + loss_d, g_params + d_params)
-        if ranks is not None:
-            # the ranks' shares of the metrics ride in the gradients' buckets
-            shares = torch.stack([v.to(loss_d.dtype) for v in metrics.values()])
-            mesh.all_reduce_([*grads, shares], ranks)
-            metrics = dict(zip(metrics, shares.unbind()))
-        mark("backward")
+        with tracing.span("step.backward"):
+            metrics = {
+                "G_GAN": loss_g_gan, "G_GAN_Feat": loss_g_feat,
+                "D_real": loss_d_real, "D_fake": loss_d_fake,
+                "loss_G": loss_g, "loss_D": loss_d,
+            }
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            g_params, d_params = _params(state.g_opt), _params(state.d_opt)
+            grads = torch.autograd.grad(loss_g + loss_d, g_params + d_params)
+            if ranks is not None:
+                # the ranks' shares of the metrics ride in the gradients' buckets
+                shares = torch.stack([v.to(loss_d.dtype) for v in metrics.values()])
+                mesh.all_reduce_([*grads, shares], ranks)
+                metrics = dict(zip(metrics, shares.unbind()))
+            mark("backward")
 
-        for net, params, net_grads, tx, optimizer in (
-                ("G", g_params, grads[:len(g_params)], g_tx, state.g_opt),
-                ("D", d_params, grads[len(g_params):], d_tx, state.d_opt)):
-            n = state.micro_index(net, accum)  # micro-batches already in this update
-            for p, g in zip(params, net_grads):
-                p.grad = g if n == 0 or p.grad is None else (g + n * p.grad) / (n + 1)
-            if n == accum - 1:
-                tx.set_lr(optimizer, state.update_count(net, accum))
-                optimizer.step()
-        state.step += 1
-        mark("optimizer")
+        with tracing.span("step.optimizer"):
+            for net, params, net_grads, tx, optimizer in (
+                    ("G", g_params, grads[:len(g_params)], g_tx, state.g_opt),
+                    ("D", d_params, grads[len(g_params):], d_tx, state.d_opt)):
+                n = state.micro_index(net, accum)  # micro-batches already in this update
+                for p, g in zip(params, net_grads):
+                    p.grad = g if n == 0 or p.grad is None else (g + n * p.grad) / (n + 1)
+                if n == accum - 1:
+                    tx.set_lr(optimizer, state.update_count(net, accum))
+                    optimizer.step()
+            state.step += 1
+            mark("optimizer")
 
         if use_pool:
             metrics["fake_concat"] = fake_concat

@@ -86,7 +86,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     batches), ``saves`` (each save's blocking ms) and ``writes`` (each
     landed save's bytes, snapshot ms and background write ms),
     ``profile`` (``utils.profiling.report`` of the ``--profile_dir``
-    window, or None) and ``launches`` (each kernel's launches in the
+    window, or None; the window traces the host beside the card, which
+    slows the host, so its idle share reads higher than a card-only
+    trace's) and ``launches`` (each kernel's launches in the
     run).  Under ``--multihost``, this rank's.  With several ``--gpu_ids``,
     rank 0's, with ``state`` replaced by its ``digest``, the launches summed
     over the ranks, and ``ranks``: each rank's, the same way."""
@@ -410,8 +412,9 @@ def _train(opt, dev: torch.device, ranks: Optional[mesh.Ranks], interrupted: Dic
                     from torch.profiler import ProfilerActivity, profile
 
                     sync()
-                    prof = profile(activities=[ProfilerActivity.CUDA if dev.type == "cuda"
-                                               else ProfilerActivity.CPU])
+                    # the host's activity too: the step's spans over the card's
+                    prof = profile(activities=[ProfilerActivity.CPU] + (
+                        [ProfilerActivity.CUDA] if dev.type == "cuda" else []))
                     prof.start()
                     prof_t0 = time.perf_counter()
                 elif prof is not None and opt_steps >= opt.profile_step + opt.profile_nsteps:

@@ -58,7 +58,12 @@ def report(prof, steps: int, wall_ms: Optional[float] = None, top: int = 15) -> 
     if busy is None:
         print("profile: no device record (a run on the CPU)")
         return out
-    kernels = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+    from torch.autograd import DeviceType
+
+    # device records only: a host operation traced beside them also carries
+    # the device time of the kernels it launched
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                      key=lambda e: -e.self_device_time_total)[:top]
     out["top"] = [{"name": e.key[:90], "count": e.count / steps,
                    "ms": e.self_device_time_total / 1e3 / steps} for e in kernels]

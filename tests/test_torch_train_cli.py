@@ -21,6 +21,7 @@ attention block, a 2-scale discriminator of ndf 4 and 2 layers), batch 2.
 
 import argparse
 import csv
+import json
 import re
 import shutil
 import signal
@@ -307,7 +308,9 @@ def test_train_cli_resume_restores_the_run_bit_for_bit(corpus, port_run, tmp_pat
     assert r["restored_digest"] == state_digest(port_run[1]["state"])
     assert [s["step"] for s in r["steps"]] == [5, 6] and r["state"].step == 6
     assert r["profile"]["steps"] == 1 and r["profile"]["device_busy_ms"] is None
-    assert (tmp_path / "prof" / "trace.json").exists()
+    # the host's activity is traced, so the step's spans are on its timeline
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    assert {"step", "step.backward"} <= {e.get("name") for e in trace["traceEvents"]}
     assert (tmp_path / "run" / "web" / "images").is_dir()
     assert CheckpointManager(str(tmp_path / "run" / "ckpt")).peek_cursor() == (3, 4)
 
@@ -658,8 +661,8 @@ def test_html_page_matches_jax(tmp_path):
 def test_profiling_reads_the_device_intervals():
     """Busy time is the union of the device records' intervals (overlaps
     counted once, annotations left out), the span runs from the first
-    start to the last end, and the report's idle share is busy time against
-    the host's wall time."""
+    start to the last end, the report's idle share is busy time against
+    the host's wall time, and its kernels are device records alone."""
     from torch.autograd import DeviceType
 
     def event(a, b, device=DeviceType.CUDA, annotation=False):
@@ -671,9 +674,11 @@ def test_profiling_reads_the_device_intervals():
             return [event(0, 1000), event(500, 1500), event(3000, 4000),
                     event(0, 9000, annotation=True), event(0, 9000, DeviceType.CPU)]
 
-        def key_averages(self):
-            return [types.SimpleNamespace(key="k1", count=4, self_device_time_total=2000.0),
-                    types.SimpleNamespace(key="cpu_op", count=9, self_device_time_total=0.0)]
+        def key_averages(self):  # a host operation carries its kernels' device time
+            return [types.SimpleNamespace(key="k1", count=4, self_device_time_total=2000.0,
+                                          device_type=DeviceType.CUDA),
+                    types.SimpleNamespace(key="cpu_op", count=9, self_device_time_total=2500.0,
+                                          device_type=DeviceType.CPU)]
 
     prof = Prof()
     assert profiling.busy_time_ms(prof, 2) == pytest.approx(1.25)
