@@ -306,6 +306,15 @@ class SpectralTransform:
                                mask_size=self.cfg.hr_mask_size, generator=generator,
                                rows=rows)
 
+    def draws(self) -> bool:
+        """Whether ``lr_forward`` or ``hr_forward`` draws from a generator
+        given to it: a masked branch with columns to mask, without
+        ``fit_residual`` (``to_spectro``)."""
+        cfg = self.cfg
+        hr_size = cfg.lr_mask_size if cfg.hr_mask_size == -1 else cfg.hr_mask_size
+        return not cfg.fit_residual and (
+            (cfg.mask and cfg.lr_mask_size > 0) or (cfg.mask_hr and hr_size > 0))
+
     def to_audio(
         self,
         log_spectro: torch.Tensor,

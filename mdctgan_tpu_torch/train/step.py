@@ -21,13 +21,17 @@ and the reported metrics are the sums of the shares: the global losses.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import collections
+import contextlib
+import gc
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from mdctgan_tpu_torch.device import float32_policy
 from mdctgan_tpu_torch.models.losses import feature_matching_loss, gan_loss
+from mdctgan_tpu_torch.ops import mdct_kernels
 from mdctgan_tpu_torch.ops.features import SpectralTransform
 from mdctgan_tpu_torch.parallel import mesh
 from mdctgan_tpu_torch.train.schedule import OptimizerSpec
@@ -53,6 +57,48 @@ def generator_forward(
 
 def _params(opt: torch.optim.Optimizer):
     return [p for group in opt.param_groups for p in group["params"]]
+
+
+_LIVE_KEYS = 2  # input shapes kept captured: the full batch and an epoch's padded tail
+
+
+def given_inputs(batch: Dict[str, torch.Tensor], pool_old: Optional[torch.Tensor] = None,
+                 pool_mask: Optional[torch.Tensor] = None,
+                 sample_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """A train step call's tensor inputs by name, those given."""
+    given = dict(lr_audio=batch["lr_audio"], hr_audio=batch["hr_audio"], pool_old=pool_old,
+                 pool_mask=pool_mask, sample_mask=sample_mask)
+    return {k: t for k, t in given.items() if t is not None}
+
+
+def graph_key(ranks: Optional[mesh.Ranks], draws: bool, given: Dict[str, torch.Tensor],
+              g_params: List[torch.Tensor], d_params: List[torch.Tensor]) -> Optional[tuple]:
+    """The key under which ``build_train_step`` captures a call with the
+    inputs ``given`` (``given_inputs``), or None where the call runs
+    eagerly: off the card, under ``ranks`` (the data-parallel step's
+    all-reduces stay eager), or where the step draws from the CPU ``noise``
+    generator (``draws``).  The key holds the inputs' device, names,
+    shapes and dtypes (so whether ``sample_mask`` and the pool's inputs are
+    given), and the parameters each optimizer steps, by identity (the
+    ``niter_fix_global`` unfreeze gives G's optimizer more)."""
+    device = given["lr_audio"].device
+    if device.type != "cuda" or ranks is not None or draws:
+        return None
+    return (device, tuple((k, tuple(t.shape), t.dtype) for k, t in given.items()),
+            tuple(map(id, g_params)), tuple(map(id, d_params)))
+
+
+class _Captured(NamedTuple):
+    """One key's graphs in capture order, the static tensors they read
+    (``inputs``) and write (``metrics``, ``grads``, ``fake_concat``), the
+    parameters the gradients are for, and the K1/K2 launches a replay makes."""
+    graphs: List[Tuple[str, "torch.cuda.CUDAGraph"]]
+    inputs: Dict[str, torch.Tensor]
+    metrics: Dict[str, torch.Tensor]
+    grads: List[torch.Tensor]
+    fake_concat: Optional[torch.Tensor]
+    params: Tuple[List[torch.Tensor], List[torch.Tensor]]
+    launches: Dict[str, int]
 
 
 def build_train_step(
@@ -103,6 +149,24 @@ def build_train_step(
     The step runs under ``float32_policy(allow_tf32)``: TF32 off unless a
     caller asks for it to read what it costs.
 
+    On the card the parts k1 to backward replay as CUDA graphs, one a part,
+    so the host launches four graphs where it would launch thousands of
+    kernels.  Each call has a key (``graph_key``); a key's first call runs
+    eagerly, which sets up what a capture cannot (Adam's state, the
+    libraries' first use); its second call captures the four parts into
+    one memory pool and steps by replaying them, as does every later call.  The batch and the mask and
+    pool inputs are copied into the graphs' static inputs, ``mark`` is
+    called after each part's replay (its events then time the part on the
+    card), the returned metrics are copies, and the optimizer part runs
+    eagerly on the gradients, which the backward graph writes into buffers
+    outside its pool (copied first where ``accum_steps`` > 1 keeps them past
+    the next replay).  The last ``_LIVE_KEYS`` keys keep their graphs, all
+    of one set of parameters: a call with others (another state, the
+    unfreeze) drops them.  They go with the ``train_step`` that holds them.
+    Counters (``utils/tracing.py``): ``step.calls``, ``step.graph_captures``,
+    ``step.graph_replays``; a replay adds its captured launches to
+    ``mdct_kernels.LAUNCHES``.
+
     With ``ranks`` the step is one rank's part of a data-parallel step (the
     module docstring): ``batch``, ``sample_mask`` and the pool's inputs
     hold this rank's rows, the noise fills are drawn at the global shape,
@@ -112,6 +176,10 @@ def build_train_step(
     if g_tx.accum_steps != d_tx.accum_steps:
         raise ValueError("G and D must accumulate over the same number of micro-batches")
     accum = g_tx.accum_steps
+    draws = noise is not None and transform.draws()
+    # the keys seen (None: once, eager) or captured, all of one set of parameters
+    captured: "collections.OrderedDict[tuple, Optional[_Captured]]" = collections.OrderedDict()
+    streams: Dict[torch.device, "torch.cuda.Stream"] = {}
 
     def d_concat(lr_spec, img_spec):
         return torch.cat((lr_spec, transform.g_input(img_spec)), dim=1)
@@ -121,34 +189,119 @@ def build_train_step(
                    pool_mask: Optional[torch.Tensor] = None,
                    sample_mask: Optional[torch.Tensor] = None,
                    mark: Optional[Callable[[str], None]] = None):
+        tracing.count("step.calls")
+        mark = mark or (lambda name: None)
         with tracing.span("step"), float32_policy(allow_tf32):
-            return step_body(state, batch, pool_old, pool_mask, sample_mask,
-                             mark or (lambda name: None))
+            params = _params(state.g_opt), _params(state.d_opt)
+            given = given_inputs(batch, pool_old, pool_mask, sample_mask)
+            key = graph_key(ranks, draws, given, *params)
+            if key is None:
+                return eager(state, params, given, mark)
+            if captured and next(iter(captured))[-2:] != key[-2:]:
+                captured.clear()  # another state or the unfreeze: its graphs are stale
+            if key not in captured:
+                captured[key] = None
+                while len(captured) > _LIVE_KEYS:
+                    captured.popitem(last=False)
+                return eager(state, params, given, mark)
+            if captured[key] is None:
+                device = key[0]
+                if device not in streams:
+                    streams[device] = torch.cuda.Stream(device)
+                captured[key] = capture(streams[device], state, params, given)
+            captured.move_to_end(key)
+            return replay(captured[key], state, given, mark)
 
-    def step_body(state, batch, pool_old, pool_mask, sample_mask, mark):
-        # each part is the span step.<part> and ends with mark(<part>)
-        with tracing.span("step.k1"):
+    def eager(state, params, given, mark):
+        @contextlib.contextmanager
+        def part(name):
+            with tracing.span("step." + name):
+                yield
+                mark(name)
+
+        metrics, grads, fake_concat = forward_backward(state, params, given, part)
+        optimize(state, params, grads, mark, alias=True)
+        if use_pool:
+            metrics["fake_concat"] = fake_concat
+        return state, metrics
+
+    def capture(stream, state, params, given):
+        """The key's graphs: the parts k1 to backward captured on ``stream``
+        into one pool, reading copies of the call's inputs and writing the
+        gradients to buffers outside the pool (a state that keeps them as
+        ``.grad`` then holds no pool).  Nothing runs."""
+        gc.collect()  # dropped train steps' graphs free their pools first
+        inputs = {k: t.clone() for k, t in given.items()}
+        grads_out = [torch.empty_like(p) for p in params[0] + params[1]]
+        pool = torch.cuda.graph_pool_handle()
+        graphs = []
+
+        @contextlib.contextmanager
+        def part(name):
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: the input pipeline's thread pins memory meanwhile
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                yield
+            graphs.append((name, graph))
+
+        before = dict(mdct_kernels.LAUNCHES)
+        metrics, grads, fake_concat = forward_backward(state, params, inputs, part, grads_out)
+        # cuBLAS keeps a workspace per handle and stream, made in the pool
+        # while capturing; the graphs keep its memory, the handles let it go,
+        # so nothing outside holds the pool once the graphs are dropped
+        torch._C._cuda_clearCublasWorkspaces()
+        launches = {k: n - before[k] for k, n in mdct_kernels.LAUNCHES.items()}
+        for k, n in launches.items():  # captured, not run: each replay counts them
+            mdct_kernels.LAUNCHES[k] -= n
+        tracing.count("step.graph_captures")
+        return _Captured(graphs, inputs, metrics, grads, fake_concat, params, launches)
+
+    def replay(entry: _Captured, state, given, mark):
+        state.generator.train()
+        for name, graph in entry.graphs:
+            with tracing.span("step." + name):
+                if name == "k1":
+                    for k, static in entry.inputs.items():
+                        static.copy_(given[k])
+                graph.replay()
+                mark(name)
+        for k, n in entry.launches.items():
+            mdct_kernels.LAUNCHES[k] += n
+        tracing.count("step.graph_replays")
+        metrics = {k: v.clone() for k, v in entry.metrics.items()}
+        optimize(state, entry.params, entry.grads, mark, alias=accum == 1)
+        if use_pool:
+            metrics["fake_concat"] = entry.fake_concat.clone()
+        return state, metrics
+
+    def forward_backward(state, params, given, part, grads_out=None):
+        """The parts k1 to backward on the inputs ``given``, each under
+        ``part(name)`` -> (metrics, gradients of ``params``' G then D
+        leaves, written into ``grads_out`` where given, fake_concat)."""
+        lr_audio, hr_audio = given["lr_audio"], given["hr_audio"]
+        pool_old, pool_mask = given.get("pool_old"), given.get("pool_mask")
+        sample_mask = given.get("sample_mask")
+        with part("k1"):
             gen, disc = state.generator, state.discriminator
-            bsz = batch["lr_audio"].shape[0]
+            bsz = lr_audio.shape[0]
             rows = total = None
             if ranks is not None:
                 rows = ranks.global_rows(bsz)
                 # the global batch's weight, the losses' common denominator
                 total = (sample_mask.sum().reshape(1) if sample_mask is not None
-                         else torch.full((1,), float(bsz), device=batch["lr_audio"].device))
+                         else torch.full((1,), float(bsz), device=lr_audio.device))
                 mesh.all_reduce_([total], ranks)
                 total = torch.clamp(total[0], min=1.0)
             with torch.no_grad():
-                lr_spec, _, _ = transform.lr_forward(batch["lr_audio"], noise, rows)
-                hr_spec, _, _ = transform.hr_forward(batch["hr_audio"], noise, rows)
-            mark("k1")
+                lr_spec, _, _ = transform.lr_forward(lr_audio, noise, rows)
+                hr_spec, _, _ = transform.hr_forward(hr_audio, noise, rows)
 
-        with tracing.span("step.g_forward"):
+        with part("g_forward"):
             gen.train()
             sr_spec = generator_forward(gen, transform, lr_spec, sample_mask)
-            mark("g_forward")
 
-        with tracing.span("step.d_forward"):
+        with part("d_forward"):
             frozen_d = {k: v.detach() for k, v in disc.named_parameters()}
             pred_fake_g = torch.func.functional_call(disc, frozen_d,
                                                      (d_concat(lr_spec, sr_spec),))
@@ -174,40 +327,45 @@ def build_train_step(
             loss_d_real = gan_loss(pred_real, True, use_lsgan, **weights)
             loss_g = loss_g_gan + loss_g_feat
             loss_d = 0.5 * (loss_d_fake + loss_d_real)
-            mark("d_forward")
 
-        with tracing.span("step.backward"):
+        with part("backward"):
             metrics = {
                 "G_GAN": loss_g_gan, "G_GAN_Feat": loss_g_feat,
                 "D_real": loss_d_real, "D_fake": loss_d_fake,
                 "loss_G": loss_g, "loss_D": loss_d,
             }
             metrics = {k: v.detach() for k, v in metrics.items()}
-            g_params, d_params = _params(state.g_opt), _params(state.d_opt)
-            grads = torch.autograd.grad(loss_g + loss_d, g_params + d_params)
+            grads = torch.autograd.grad(loss_g + loss_d, params[0] + params[1])
+            if grads_out is not None:
+                torch._foreach_copy_(grads_out, grads)
+                grads = grads_out
             if ranks is not None:
                 # the ranks' shares of the metrics ride in the gradients' buckets
                 shares = torch.stack([v.to(loss_d.dtype) for v in metrics.values()])
                 mesh.all_reduce_([*grads, shares], ranks)
                 metrics = dict(zip(metrics, shares.unbind()))
-            mark("backward")
+        return metrics, grads, fake_concat
 
+    def optimize(state, params, grads, mark, alias):
+        """The optimizer part, eager on every path.  A window's first
+        micro-batch's gradients become ``.grad``: themselves with ``alias``,
+        else copies (a graph's buffers, which the next replay overwrites)."""
         with tracing.span("step.optimizer"):
-            for net, params, net_grads, tx, optimizer in (
+            g_params, d_params = params
+            for net, net_params, net_grads, tx, optimizer in (
                     ("G", g_params, grads[:len(g_params)], g_tx, state.g_opt),
                     ("D", d_params, grads[len(g_params):], d_tx, state.d_opt)):
                 n = state.micro_index(net, accum)  # micro-batches already in this update
-                for p, g in zip(params, net_grads):
-                    p.grad = g if n == 0 or p.grad is None else (g + n * p.grad) / (n + 1)
+                for p, g in zip(net_params, net_grads):
+                    if n == 0 or p.grad is None:
+                        p.grad = g if alias else g.clone()
+                    else:
+                        p.grad = (g + n * p.grad) / (n + 1)
                 if n == accum - 1:
                     tx.set_lr(optimizer, state.update_count(net, accum))
                     optimizer.step()
             state.step += 1
             mark("optimizer")
-
-        if use_pool:
-            metrics["fake_concat"] = fake_concat
-        return state, metrics
 
     return train_step
 
