@@ -69,11 +69,35 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
+# The most rows of a float32 convolution that the card runs in one call.
+F32_CONV_ROWS = 8
+
+
+def f32_conv_rows(dtype: torch.dtype, device: torch.device, batch: int) -> Optional[int]:
+    """The rows a convolution of ``batch`` rows of ``dtype`` operands on
+    ``device`` runs at a time, or None for the whole batch in one call.
+
+    Past 8 rows, cuDNN's heuristic takes many float32 convolutions on the
+    H100 (TF32 off) to FFT-tiled algorithms, which cost up to 10x as much a
+    row as the same convolution at 8 rows and hold gigabytes of workspace;
+    the autotuner and channels-last do not avoid them.  The flagship
+    generator's forward takes 190 ms at batch 16 and 397 ms at 20 on the
+    whole batch, 77 and 96 ms in slices of 8.  So a float32 batch of more
+    than 8 rows on the card runs in slices of 8, each an ordinary cuDNN
+    call.  bf16 operands (cuDNN picks no FFT-tiled bf16 algorithm) and the
+    CPU keep the whole batch."""
+    if dtype == torch.float32 and device.type == "cuda" and batch > F32_CONV_ROWS:
+        return F32_CONV_ROWS
+    return None
+
+
 def conv_forward(conv: nn.Module, x: torch.Tensor,
                  dtype: Optional[torch.dtype]) -> torch.Tensor:
     """``conv(x)`` for an ``nn.Conv2d`` or ``nn.ConvTranspose2d`` in the
     compute ``dtype``: ``x``, the weight and the bias cast to it, the output
-    in it.  ``None`` runs the module as it is.
+    in it.  ``None`` runs the module as it is, in slices of rows where
+    ``f32_conv_rows`` says so (a convolution treats each row alone, and
+    autograd sums the weight's gradient over the slices).
 
     Flax adds the bias after rounding the product to bf16; here the bias
     goes into the convolution, which may add it before that rounding.  Both
@@ -81,7 +105,10 @@ def conv_forward(conv: nn.Module, x: torch.Tensor,
     and the fused one is as close or closer, and saves a pass over every
     output."""
     if dtype is None:
-        return conv(x)
+        rows = f32_conv_rows(x.dtype, x.device, x.shape[0])
+        if rows is None:
+            return conv(x)
+        return torch.cat([conv(part) for part in x.split(rows)])
     x, w = x.to(dtype), conv.weight.to(dtype)
     b = None if conv.bias is None else conv.bias.to(dtype)
     if isinstance(conv, nn.ConvTranspose2d):

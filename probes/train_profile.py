@@ -10,8 +10,10 @@ for the whole process (PyTorch's own convolutions).  One JSON line each:
   * the generator's forward alone at the batch, by CUDA events (median of 5
     after 2 warm-ups): in train mode recording the graph, as the step runs
     it; in train mode without the graph; in eval mode without the graph;
-  * the step's time by CUDA events, median of 5 after 2 warm-ups, and the
-    peak memory;
+  * the step's time by CUDA events, median of 5 after 2 warm-ups, the
+    peak memory, and the memory the allocator still holds beyond live
+    tensors once its cache is emptied: on the card the step's CUDA graphs'
+    pool;
   * ``--steps`` train steps under ``torch.profiler``: the wall time per
     step, the card's busy time per step (the union of the kernel records),
     the kernel records per step, and the 12 kernels with the largest summed
@@ -107,8 +109,11 @@ def main(argv=None) -> int:
         end.synchronize()
         if i >= 2:
             times.append(start.elapsed_time(end))
+    torch.cuda.empty_cache()
     print(json.dumps({**head, "step_ms": statistics.median(times),
-                      "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}),
+                      "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                      "held_beyond_allocated_bytes":
+                          torch.cuda.memory_reserved() - torch.cuda.memory_allocated()}),
           flush=True)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -499,3 +499,40 @@ def test_small_multi_platform_export_serves_on_card_and_cpu(cuda, tmp_path):
     named = [n.name for n in torch.export.load(written["path"]).graph.nodes
              if "cuda" in str((n.args, n.kwargs, getattr(n.meta.get("val"), "device", "")))]
     assert not named, named
+
+
+@pytest.mark.cuda
+def test_flagship_f32_generator_runs_slices_of_8_on_card(cuda, monkeypatch):
+    """The flagship-width float32 generator at batch 16 (``generate_audio.sh``'s
+    batch) runs every convolution on the card in slices of 8 rows, and
+    agrees with the whole-batch path it ran before within the port's
+    generator bound, 5e-4; the slices with TF32 on do not."""
+    from mdctgan_tpu_torch.configs import flagship_opt
+    from mdctgan_tpu_torch.device import float32_policy
+    from mdctgan_tpu_torch.models import layers
+    from mdctgan_tpu_torch.weights import init_weights
+
+    gen = build_generator(flagship_opt())
+    init_weights(gen, torch.Generator().manual_seed(0))
+    gen = gen.to(cuda).eval()
+    x = torch.randn(16, 2, 128, 256, generator=torch.Generator().manual_seed(1)).to(cuda)
+    rows, conv2d = [], torch.nn.functional.conv2d
+
+    def counted(t, *args, **kw):
+        rows.append(t.shape[0])
+        return conv2d(t, *args, **kw)
+
+    with torch.no_grad():
+        monkeypatch.setattr(torch.nn.functional, "conv2d", counted)
+        with float32_policy():
+            got = gen(x)
+        monkeypatch.setattr(torch.nn.functional, "conv2d", conv2d)
+        convs = sum(isinstance(m, torch.nn.Conv2d) for m in gen.modules())
+        assert rows == [8] * (2 * convs)
+        with float32_policy(allow_tf32=True):
+            tf32 = gen(x)
+        monkeypatch.setattr(layers, "f32_conv_rows", lambda *a: None)
+        with float32_policy():
+            whole = gen(x)
+    assert float((got - whole).abs().max()) <= 5e-4
+    assert float((tf32 - whole).abs().max()) > 5e-4
