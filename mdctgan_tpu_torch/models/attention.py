@@ -1,4 +1,4 @@
-"""Bottleneck-transformer attention stack (NCHW).
+"""Bottleneck-transformer attention stack (NCHW shapes).
 
 The port of ``mdctgan_tpu/models/attention.py`` (itself a re-implementation
 of ``bottleneck_transformer_pytorch==0.1.4`` with ``downsample=False`` and
@@ -12,7 +12,9 @@ them over the whole batch.
 Layout, as in the reference: the qkv channel axis splits as
 ``(3, heads, dim_head)`` with the 3 outermost, tokens are the row-major
 flattening of (H, W), and the attention output returns to channels as
-``(heads, dim_head)`` with heads outermost.
+``(heads, dim_head)`` with heads outermost.  On channels-last activations
+(``layers.conv_nhwc``) the same splits are views over the (B, H, W, C)
+bytes, and the output returns channels-last.
 
 Under a compute ``dtype`` (the bf16 policy) only the 1x1 convolutions run
 in it, as in the JAX package: the qkv projection is cast back to float32
@@ -27,7 +29,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from mdctgan_tpu_torch.models.layers import conv_forward, lift
+from mdctgan_tpu_torch.models.layers import channels_last, conv_forward, lift, reduce_mean
 from mdctgan_tpu_torch.parallel.mesh import gather_over_ranks
 
 
@@ -60,12 +62,19 @@ class Attention2D(nn.Module):
         b, _, h, w = x.shape
         heads, dh = self.heads, self.dim_head
         qkv = lift(conv_forward(self.to_qkv, x, self.compute_dtype))
-        qkv = qkv.reshape(b, 3, heads, dh, h * w)
-        q, k, v = (qkv[:, i].transpose(-1, -2) for i in range(3))  # b,heads,n,d
+        nhwc = channels_last(qkv)
+        if nhwc:  # (b, n, 3, heads, d) over the channels-last bytes
+            qkv = qkv.permute(0, 2, 3, 1).reshape(b, h * w, 3, heads, dh)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # b,heads,n,d
+        else:
+            qkv = qkv.reshape(b, 3, heads, dh, h * w)
+            q, k, v = (qkv[:, i].transpose(-1, -2) for i in range(3))  # b,heads,n,d
         q = q * (dh ** -0.5)
         sim = torch.matmul(q, k.transpose(-1, -2)) + self.pos_emb(q)
         attn = torch.softmax(sim, dim=-1)
         out = torch.matmul(attn, v)  # b, heads, n, d
+        if nhwc:
+            return out.transpose(1, 2).reshape(b, h, w, heads * dh).permute(0, 3, 1, 2)
         return out.transpose(-1, -2).reshape(b, heads * dh, h, w)
 
 
@@ -125,8 +134,8 @@ class _BN2d(nn.Module):
             if mask is None and not self.across_ranks:
                 n = float(x.shape[0] * hw)
                 bessel = n / max(n - 1.0, 1.0)
-                mean = x.mean(dim=(0, 2, 3))
-                var = (x - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+                mean = reduce_mean(x, (0, 2, 3))
+                var = reduce_mean((x - mean[:, None, None]).square(), (0, 2, 3))
             else:
                 # the masked sums and count, then the squared deviations
                 # about their mean (a rank may keep no row: hence the clamp)

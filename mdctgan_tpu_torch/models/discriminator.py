@@ -1,4 +1,4 @@
-"""PatchGAN discriminators (NCHW).
+"""PatchGAN discriminators (NCHW shapes).
 
 The port of ``mdctgan_tpu/models/discriminator.py``.  Each scale returns the
 list of its intermediate features (the reference's ``getIntermFeat``) for
@@ -8,7 +8,12 @@ names follow the Flax tree (``scale2.layer0.conv``), so
 a generator.  The JAX package's column-phased ``layer0`` is a TPU form of
 the same convolution; here it is a plain one.  Under ``fp16`` every
 convolution computes in bf16 (``models/layers.py``), the intermediate
-features stay bf16 and the logit map is cast to float32.
+features stay bf16 and the logit map is cast to float32; on the card each
+scale's input enters channels-last (``layers.conv_layout``) and the
+features stay so.  The pyramid's pools run on the NCHW input: the card's
+channels-last average pool returns a wrong gradient (torch 2.11 cu128),
+which doubled the bf16 train step's G gradient error against float64
+(``chip_smoke.py`` phase 8b).
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch
 import torch.nn as nn
 
 from mdctgan_tpu_torch.models.layers import (
-    Conv, avg_pool_3x3_s2, instance_norm, leaky_relu, lift)
+    Conv, avg_pool_3x3_s2, conv_layout, instance_norm, leaky_relu, lift)
 from mdctgan_tpu_torch.options import as_dict, train_options
 
 
@@ -62,7 +67,7 @@ class MultiscaleDiscriminator(nn.Module):
                  num_D: int = 3, use_sigmoid: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.num_D = num_D
+        self.num_D, self.compute_dtype = num_D, dtype
         for i in range(num_D):
             self.add_module(f"scale{num_D - 1 - i}",
                             NLayerDiscriminator(input_nc, ndf, n_layers, use_sigmoid, dtype))
@@ -70,7 +75,8 @@ class MultiscaleDiscriminator(nn.Module):
     def forward(self, x: torch.Tensor) -> List[List[torch.Tensor]]:
         results = []
         for i in range(self.num_D):
-            results.append(getattr(self, f"scale{self.num_D - 1 - i}")(x))
+            results.append(getattr(self, f"scale{self.num_D - 1 - i}")(
+                conv_layout(x, self.compute_dtype)))
             if i != self.num_D - 1:
                 x = avg_pool_3x3_s2(x)
         return results

@@ -1,4 +1,4 @@
-"""pix2pixHD-style generators (NCHW).
+"""pix2pixHD-style generators (NCHW shapes).
 
 The port of ``mdctgan_tpu/models/generator.py``.  Submodule names follow the
 Flax tree (``global.down0.conv1.conv``, ``local_res2.conv2.conv``, ...);
@@ -20,7 +20,10 @@ convolution (``models/layers.py``); the parameters stay float32.  The
 activations between convolutions are bf16 up to the attention stack, whose
 float32 output keeps the global resblocks after it on a float32 residual
 stream until the first upsample; the 7x7 head's output is cast to float32
-before the tanh, so ``forward`` and ``logits`` return float32.
+before the tanh, so ``forward`` and ``logits`` return float32.  Under
+bf16 on the card each level's input enters channels-last
+(``layers.conv_layout``; the pyramid pools the NCHW input) and every
+activation stays so; the one-channel output is contiguous too.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from mdctgan_tpu_torch.models.layers import (
     InterpolateUpsample,
     ResnetBlock,
     avg_pool_3x3_s2,
+    conv_layout,
     instance_norm_relu,
     lift,
     reflect_pad,
@@ -122,6 +126,7 @@ class GlobalGenerator(nn.Module):
     def features(self, x: torch.Tensor,
                  sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The ngf-channel map after the last upsample stage."""
+        x = conv_layout(x, self.compute_dtype)
         h = instance_norm_relu(self.stem(reflect_pad(x, 3)))
         for i in range(self.n_downsampling):
             h = instance_norm_relu(getattr(self, f"down{i}")(h))
@@ -251,12 +256,12 @@ class LocalEnhancer(nn.Module):
     def logits(self, x: torch.Tensor,
                sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The output before its tanh."""
-        levels = [x]
+        levels = [x]  # pooled in NCHW (models/discriminator.py says why)
         for _ in self.prefixes:
             levels.append(avg_pool_3x3_s2(levels[-1]))
         h = self.coarse(levels[-1], sample_mask)
         for prefix, level in zip(self.prefixes, reversed(levels[:-1])):
-            h = self._branch(prefix, h, level, sample_mask)
+            h = self._branch(prefix, h, conv_layout(level, self.compute_dtype), sample_mask)
         return lift(self.local_head(reflect_pad(h, 3)))
 
     def forward(self, x: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Building-block layers (NCHW).
+"""Building-block layers (NCHW shapes; channels-last bytes under ``conv_nhwc``).
 
 The port of ``mdctgan_tpu/models/layers.py`` in the reference's own form:
 the interpolate upsample is nearest 2x followed by the convolution, the
@@ -16,15 +16,25 @@ parameters stay float32; a convolution casts its input, weight and bias to
 ``dtype`` and returns ``dtype``, as Flax's ``nn.Conv(dtype=)`` does.
 ``None`` is the plain float32 module.  The instance norm keeps the dtype of
 its input and accumulates its statistics in float32.
+
+Every tensor has the logical NCHW shape.  Where ``conv_nhwc`` says so (bf16
+on the card) the networks hold their activations channels-last
+(``conv_layout`` at each network's entry): the same shapes and numbers, NHWC
+strides, which cuDNN's bf16 kernels read and write without a transpose.
+The ops between the convolutions keep that layout (``reflect_pad`` by a
+form of its own).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from mdctgan_tpu_torch.utils import tracing
 
 _EPS = 1e-5
 
@@ -36,8 +46,57 @@ def lift(x: torch.Tensor) -> torch.Tensor:
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """``nn.ReflectionPad2d(pad)`` on the two spatial axes."""
-    return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+    """``nn.ReflectionPad2d(pad)`` on the two spatial axes.  A channels-last
+    ``x`` keeps its layout (the card's 2-D reflection pad returns NCHW):
+    its (N, H, W, C) bytes, as an unbatched 3-D volume, are padded on H and
+    W and not on C, the same elements as the 2-D pad."""
+    if not channels_last(x):
+        return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+    nhwc = F.pad(x.permute(0, 2, 3, 1), (0, 0, pad, pad, pad, pad), mode="reflect")
+    return nhwc.permute(0, 3, 1, 2)
+
+
+def channels_last(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a 4-D tensor laid out channels-last and not also
+    contiguous (one channel, or one pixel, is both)."""
+    return (x.dim() == 4 and not x.is_contiguous()
+            and x.is_contiguous(memory_format=torch.channels_last))
+
+
+class _BroadcastMean(torch.autograd.Function):
+    """``x.mean(dim, keepdim, dtype=dtype)`` whose gradient returns
+    broadcast: divided and cast to ``x``'s dtype at the mean's shape, then
+    expanded, the values autograd's own gives.  Autograd's expands first
+    and materializes the division and the cast at ``x``'s shape in NCHW,
+    which meets a channels-last gradient in the next op: a transposing
+    pass over the map."""
+
+    @staticmethod
+    def forward(ctx, x, dim, keepdim, dtype):
+        ctx.shape, ctx.dtype, ctx.dim, ctx.keepdim = x.shape, x.dtype, dim, keepdim
+        return x.mean(dim=dim, keepdim=keepdim, dtype=dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rank = len(ctx.shape)
+        dims = range(rank) if ctx.dim is None else sorted(d % rank for d in ctx.dim)
+        if not ctx.keepdim:
+            for d in dims:
+                grad = grad.unsqueeze(d)
+        n = math.prod(ctx.shape[d] for d in dims)
+        return (grad / n).to(ctx.dtype).expand(ctx.shape), None, None, None
+
+
+def reduce_mean(x: torch.Tensor, dim: Optional[Sequence[int]] = None, keepdim: bool = False,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x.mean(dim, keepdim, dtype=dtype)`` (every axis where ``dim`` is
+    None); on a channels-last ``x`` that autograd records, its gradient
+    stays channels-last (``_BroadcastMean``)."""
+    if channels_last(x) and x.requires_grad and torch.is_grad_enabled():
+        return _BroadcastMean.apply(x, None if dim is None else tuple(dim), keepdim, dtype)
+    if dim is None:
+        return x.mean(dtype=dtype)
+    return x.mean(dim=dim, keepdim=keepdim, dtype=dtype)
 
 
 def instance_norm(x: torch.Tensor) -> torch.Tensor:
@@ -47,8 +106,8 @@ def instance_norm(x: torch.Tensor) -> torch.Tensor:
     mean and the inverse deviation are rounded to bf16, and the centring,
     the square and the scaling run in bf16."""
     acc = torch.promote_types(x.dtype, torch.float32)
-    centered = x - x.mean(dim=(2, 3), keepdim=True, dtype=acc).to(x.dtype)
-    var = centered.square().mean(dim=(2, 3), keepdim=True, dtype=acc)
+    centered = x - reduce_mean(x, (2, 3), keepdim=True, dtype=acc).to(x.dtype)
+    var = reduce_mean(centered.square(), (2, 3), keepdim=True, dtype=acc)
     return centered * torch.rsqrt(var + _EPS).to(x.dtype)
 
 
@@ -91,6 +150,45 @@ def f32_conv_rows(dtype: torch.dtype, device: torch.device, batch: int) -> Optio
     return None
 
 
+def conv_nhwc(dtype: Optional[torch.dtype], device: torch.device) -> bool:
+    """Whether the convolutions of a network computing in ``dtype`` on
+    ``device`` run on channels-last activations.
+
+    cuDNN's bf16 tensor-core kernels on the H100 are NHWC: given NCHW
+    operands, it transposes every convolution's input in and its output
+    back out (``nchwToNhwcKernel``, ``nhwcToNchwKernel``), in the forward
+    and in both halves of the backward, 12-15% of the batch-20 bf16 train
+    step's card time.  So a bf16 network on the card holds its activations
+    channels-last.  float32 operands (SIMT kernels with TF32 off, NCHW
+    natives, which channels-last does not speed up), ``None`` (the plain
+    float32 module) and the CPU keep NCHW."""
+    return dtype == torch.bfloat16 and device.type == "cuda"
+
+
+def conv_layout(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``x`` in the layout the convolutions of a network computing in
+    ``dtype`` run in (``conv_nhwc``): the networks' entry."""
+    if conv_nhwc(dtype, x.device):
+        return x.contiguous(memory_format=torch.channels_last)
+    return x
+
+
+class _ChannelsLastWeight(torch.autograd.Function):
+    """A contiguous weight cast to ``dtype`` channels-last, in one pass; its
+    gradient returns contiguous in the weight's dtype, so that it reaches
+    the optimizer in the layout of its parameter (a mismatch takes
+    ``torch._foreach_*`` off its multi-tensor path)."""
+
+    @staticmethod
+    def forward(ctx, w, dtype):
+        ctx.dtype = w.dtype
+        return w.to(dtype, memory_format=torch.channels_last)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.dtype, memory_format=torch.contiguous_format), None
+
+
 def conv_forward(conv: nn.Module, x: torch.Tensor,
                  dtype: Optional[torch.dtype]) -> torch.Tensor:
     """``conv(x)`` for an ``nn.Conv2d`` or ``nn.ConvTranspose2d`` in the
@@ -103,13 +201,28 @@ def conv_forward(conv: nn.Module, x: torch.Tensor,
     goes into the convolution, which may add it before that rounding.  Both
     forms were held against a float64 truth (``tests/test_torch_bf16.py``)
     and the fused one is as close or closer, and saves a pass over every
-    output."""
+    output.
+
+    Where ``conv_nhwc`` holds, the input and the weight are cast
+    channels-last (the output follows), and the counters
+    ``conv.bf16_calls`` and, where ``x`` arrived channels-last,
+    ``conv.nhwc_in`` grow by one (``utils/tracing.py``)."""
     if dtype is None:
         rows = f32_conv_rows(x.dtype, x.device, x.shape[0])
         if rows is None:
             return conv(x)
         return torch.cat([conv(part) for part in x.split(rows)])
-    x, w = x.to(dtype), conv.weight.to(dtype)
+    if conv_nhwc(dtype, x.device):
+        tracing.count("conv.bf16_calls")
+        if x.is_contiguous(memory_format=torch.channels_last):
+            tracing.count("conv.nhwc_in")
+        x = x.to(dtype, memory_format=torch.channels_last)
+        w = conv.weight
+        # the Function costs the host a call; without autograd the cast is the same
+        w = (_ChannelsLastWeight.apply(w, dtype) if w.requires_grad and torch.is_grad_enabled()
+             else w.to(dtype, memory_format=torch.channels_last))
+    else:
+        x, w = x.to(dtype), conv.weight.to(dtype)
     b = None if conv.bias is None else conv.bias.to(dtype)
     if isinstance(conv, nn.ConvTranspose2d):
         return F.conv_transpose2d(x, w, b, conv.stride, conv.padding, conv.output_padding,

@@ -22,7 +22,7 @@ from typing import List, Optional
 
 import torch
 
-from mdctgan_tpu_torch.models.layers import lift
+from mdctgan_tpu_torch.models.layers import lift, reduce_mean
 
 Features = List[List[torch.Tensor]]
 
@@ -30,7 +30,7 @@ Features = List[List[torch.Tensor]]
 def _wmean(x: torch.Tensor, w: Optional[torch.Tensor],
            total_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     if w is None and total_weight is None:
-        return x.mean()
+        return reduce_mean(x)
     per = x.reshape(x.shape[0], -1).mean(dim=1)
     w = torch.ones_like(per) if w is None else w.to(per.dtype)
     total = (torch.clamp(w.sum(), min=1.0) if total_weight is None

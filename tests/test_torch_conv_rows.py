@@ -203,15 +203,26 @@ def test_f32_long_traffic_is_the_long_one_but_its_limit_and_trace_counts():
     assert (f32["trace_requests"], f32["label_requests"]) == (20, 5)
 
 
+# metrics of the bf16 convolutions alone, which a float32 run has nothing for
+BF16_ONLY = {"nhwc_conv_share.generate"}
+
+
 def test_every_metric_of_generate_long_reads_generate_long_f32():
+    """Every metric of ``generate-long`` reads the float32 cell too, but
+    those of the bf16 convolutions (``BF16_ONLY``), which list the bf16
+    serving cells alone."""
     bench = _json("BENCHMARK.json")
     cell = next(w for w in bench["workloads"] if w["name"] == "generate-long-f32")
     assert cell == dict(cell, config="flagship-generate-f32", traffic="requests-long-f32",
                         chips=1)
     metrics = bench["end_to_end"] + bench["per_layer"]
-    long = [m["name"] for m in metrics if "generate-long" in m.get("workloads", [])]
+    long = [m["name"] for m in metrics if "generate-long" in m.get("workloads", [])
+            and m["name"] not in BF16_ONLY]
     assert len(long) == 9
     for m in metrics:
+        if m["name"] in BF16_ONLY:
+            assert m["workloads"] == ["generate-long", "generate-clips"], m["name"]
+            continue
         assert ("generate-long" in m.get("workloads", [])) == \
             ("generate-long-f32" in m.get("workloads", [])), m["name"]
     assert [c["file"] for c in bench["configs"] if c["name"] == "flagship-generate-f32"] == \
