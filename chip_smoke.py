@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path, train step and entry points
-on one NVIDIA GPU.
+"""Check the PyTorch/CUDA port's serving path, train step and entry points
+on one NVIDIA GPU, and time its transform kernels.
 
     python3 chip_smoke.py
+
+It holds the card to the plain versions, to float64 and to the CPU, and
+counts every kernel launch; only phase 7 times, and only the kernels.  The
+port's end-to-end speed is the benchmark's (``perfbench/``, ``PERF.md``).
 
 Phases (none catches an exception; any failure exits non-zero):
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
@@ -41,17 +45,16 @@ Phases (none catches an exception; any failure exits non-zero):
      on the card and on the CPU against the float64 generator (the card's
      error within ``BF16_FACTOR`` times the CPU's, by max and RMS), and the
      three requests again through a bf16 model, counted the same way;
-  7. timings at each main path's batch (4, 8, 10, 16, 20) of each kernel (FFT
-     and dense forms at n_fft 512; the dense forms at n_fft 960 at batches
-     8, 16 and 20 and at 4096 at batch 8), its plain version and a library
-     matmul yardstick, with
-     the dense product's own bound in 3xTF32 (``dense_bound_ms``): as
-     CUDA-graph replays timed by CUDA events (``ms``), as eager calls
-     (``eager_ms``, which add the host's launch cost) and, for the
-     kernels, as device time from ``torch.profiler`` (``device_ms``),
-     beside the bound; a one-element add, the least time of a kernel node
-     in a graph; the generator forward and end-to-end ``upsample``, in
-     float32 and in bf16;
+  7. the kernel table: at each main path's batch (4, 8, 10, 16, 20) each
+     kernel (FFT and dense forms at n_fft 512; the dense forms at n_fft 960
+     at batches 8, 16 and 20 and at 4096 at batch 8), its plain version
+     and a library matmul yardstick, as CUDA-graph replays timed by CUDA
+     events (``ms``), as eager calls (``eager_ms``, which add the host's
+     launch cost) and, for the kernels, as device time from
+     ``torch.profiler`` (``device_ms``), beside the least time of
+     ``perfbench/roofline.py`` (``bound_ms``) and the dense product's own
+     bound in 3xTF32 (``dense_bound_ms``); and a one-element add, the least
+     time of a kernel node in a graph;
   8. training, through ``create_train_state`` and ``build_train_step`` at the
      flagship config: one SGD(lr=1) step (its update is the gradient) at
      batch 2 on the card against the same step on the CPU, from the same
@@ -64,13 +67,9 @@ Phases (none catches an exception; any failure exits non-zero):
      step, per top-level block and over the losses (the card within
      ``BF16_FACTOR`` times the CPU's error); 5 float32 and 10 bf16 steps of
      the flagship Adam at batch 20 on synthetic speech (finite losses, G
-     and D move, K1 launched twice a step, every other kernel never), each
-     followed by the step's median time over 20 steps, samples per second,
-     peak memory, one step split into its parts by CUDA events, and the
-     card's busy time, kernel records and top kernels per step from
-     ``torch.profiler`` (with the share of cuDNN's FFT-tiled
-     convolutions); a batch-20 step whose ``sample_mask`` keeps 13 rows
-     against a batch-13 step;
+     and D move, K1 launched twice a step, every other kernel never); a
+     batch-20 step whose ``sample_mask`` keeps 13 rows against a batch-13
+     step;
   9. the generate entry point, ``generate_cli.main`` with
      ``generate_audio.sh``'s flags (``--fp16`` included): a reference-layout
      ``latest_net_G.pth`` of seeded flagship weights (the output head damped
@@ -84,11 +83,9 @@ Phases (none catches an exception; any failure exits non-zero):
      relative, each SNR 0.01 dB, MSE 1e-2 relative; the same file in bf16
      on the CPU against the card (read); the JAX package's default
      generator (``netG global``, transconv up) at batch 2 on the card
-     against the CPU, within 5e-4 with a TF32 control reading; the
-     batch-mode run in bf16 and in float32, each timed after a warm-up
-     file, split into its set-up and each file by ``main`` itself; a second
-     run at batch 8 (read); a 60 s file (6 batches) with ``api.IN_FLIGHT``
-     1 (a synchronous loop) and 2, alternated, whose SR must be identical;
+     against the CPU, within 5e-4 with a TF32 control reading; a 60 s
+     file (6 batches) with ``api.IN_FLIGHT`` 1 (a synchronous loop) and 2,
+     whose SR must be identical;
  10. the train entry point, ``train_cli.main`` with ``train.sh``'s flags
      (``--fp16`` included) on a corpus that ``tools/make_corpus.py`` writes
      (40 files of 2 s synthetic speech at 48 kHz, 36 to train, 4 to eval):
@@ -106,10 +103,7 @@ Phases (none catches an exception; any failure exits non-zero):
      last state, bit for bit (``checkpoint.state_digest``); 2 steps, a
      save, a restore into a fresh state and 2 steps on fixed batches
      against 4 steps (losses within 1e-3 relative; two uninterrupted runs'
-     spread read); and the run's own split: set-up, each step's wall and
-     ``next(pipeline)`` ms, the profiled step's device idle share, eval,
-     checkpoint bytes, save ms blocking and in the background, peak
-     memory, beside phase 8's bf16 step;
+     spread read);
  11. the spectral modes and generator layouts beside the flagship's, each
      path driven with the kernels' and the matmul form's counts set to 0
      just before it: (a) ``train.sh``'s flags with ``--mask
@@ -117,15 +111,15 @@ Phases (none catches an exception; any failure exits non-zero):
      float32 and bf16 (K1 and K2 launch, the matmul form does not), card
      against CPU on the waveform (2e-3 of its largest value) and the
      logits (5e-4), one float32 SGD(1) step at batch 2 (losses 1e-3
-     relative, the CPU fed the card's spectra), 10 bf16 steps at batch 20
-     timed beside phase 8's flagship step; (b) ``generate_audio.sh``'s
+     relative, the CPU fed the card's spectra), 13 bf16 Adam steps at
+     batch 20 (finite losses, K1 twice a step); (b) ``generate_audio.sh``'s
      flags with ``--n_local_enhancers 2`` in float32, the same request
      and bounds, card against CPU on its first second; (c) ``generate_audio.sh``'s flags without
      ``--arcsinh_transform --abs_spectro --abs_norm --center`` (dB,
      per-sample min/max, no centring; ``--input_nc 1 --segment_length
      33024``): ``generate_cli.main`` on a 1.0 s file (the matmul form
      counted, K1/K2 never), card against CPU at one batch size so that
-     both draw the same pseudo-phase signs, the request timed, and the
+     both draw the same pseudo-phase signs, and the
      matmul form's spectrum against float64 within 1e-5 (relative) under
      the policy, which TF32 must fail; (d) the explicit and raw modes at a
      small depth, one batch each, card against CPU stage by stage, each
@@ -140,16 +134,13 @@ Phases (none catches an exception; any failure exits non-zero):
      the same batches: the first step's losses bit for bit, the second's
      within 10d's bounds (1e-3 float32, 2^-7 bf16; the card's backward
      does not repeat bit for bit), a second single-card run's distance
-     read as the control; K1 twice a step;
-     the bf16 step at batch 20 with and without the world-1 group in
-     turns (the collectives' cost) and the host's agreement on a signal;
-     (b) two ranks on the card over gloo (``parallel.mesh.spawn``), 10 + 10
+     read as the control; K1 twice a step; (b) two ranks on the card over gloo (``parallel.mesh.spawn``), 10 + 10
      rows of a batch of 20 whose tail mask keeps 16, against one rank on
      the 20: the same state on both ranks, the losses within 1e-6 + 5e-5
      relative, the SGD(1) update within phase 8a's bound (the JAX bounds
      plus 2x the movement of the float64 step on the card between K1's
      spectra and the plain version's, at this batch); TF32 allowed read as
-     the control; then 4 bf16 Adam steps a rank, timed; (c)
+     the control; then 5 bf16 Adam steps a rank (K1 twice a step); (c)
      ``api.upsample`` over two replicas on the card against one (2e-3 of
      the largest value; each replica launching K1 and K2 once a batch);
      (d) ``--gpu_ids 0,1`` refused by both CLIs on a host of one card;
@@ -159,8 +150,7 @@ Phases (none catches an exception; any failure exits non-zero):
      (1.0, 2.2, 3.7 s at 16 kHz, batch 8) in float32 and in bf16, each
      batch launching ``mdct_spectro_dense`` and ``imdct_audio_dense`` once
      and the FFT forms never, the float32 SR of the first against the port
-     on the CPU (2e-3 of its largest value, phase 6's bound), the 3.7 s
-     request timed in each precision (median of 5); (b) 3 bf16
+     on the CPU (2e-3 of its largest value, phase 6's bound); (b) 3 bf16
      Adam steps at batch 20: finite losses, G and D move,
      ``mdct_spectro_dense`` twice a step and nothing else;
  14. the serving export (``export_cli``, K1 and K2 as the registered
@@ -168,7 +158,7 @@ Phases (none catches an exception; any failure exits non-zero):
      each path with the counts set to 0 just before it: (a) the flagship
      at full width and depth from a reference-layout ``.pth`` of seeded
      weights, exported on the card at batch 8 in float32 and with
-     ``--fp16`` (seconds and bytes); a fresh process that imports torch
+     ``--fp16`` (bytes); a fresh process that imports torch
      and the op module and nothing else of the port (no model code, no
      JAX) serves the segments of three requests (1.0, 2.2, 3.7 s) through
      each program, one FFT-form K1 and K2 a call and the dense forms
@@ -177,9 +167,7 @@ Phases (none catches an exception; any failure exits non-zero):
      program against the port on the CPU at phase 6's bound; the same
      program called with TF32 allowed and without ``serve_export``'s
      scope must move (its distance from the CPU read beside that bound);
-     each program's operator nodes (read); each program's call
-     against ``model.inference`` at batch 8, alternated, by CUDA events
-     (median of 20 after 3 warm-ups); (b) the n_fft-480 program (hop
+     each program's operator nodes (read); (b) the n_fft-480 program (hop
      240, segment 30480) at a reduced depth: ``mdct_spectro_dense`` and
      ``imdct_audio_dense`` once each a call, through the operators, the
      SR held to ``model.inference``; (c) the batch-8 program called at
@@ -196,7 +184,7 @@ Phases (none catches an exception; any failure exits non-zero):
      expected), and (ii) by a fresh process that sees no card
      (``CUDA_VISIBLE_DEVICES=""``) through ``load(path, device="cpu")``,
      no launch, against the port's ``model.inference`` on the CPU at the
-     same bound, where (iii) ``load(path)`` raises; each load timed;
+     same bound, where (iii) ``load(path)`` raises;
  15. the port's counterparts of the JAX tools beside its package, each
      path with the counts set to 0 just before it: (a)
      ``verify_import_cli`` on a reference-layout ``.pth`` of seeded
@@ -296,18 +284,18 @@ TRAIN_CLI_FLAGS = [
 ]
 CORPUS = ["--style", "speech", "--n_files", "40", "--seconds", "2.0", "--seed", "7"]
 GENERATE_SECONDS = (1.0, 2.2, 3.7)
-LONG_SECONDS = 60.0  # the in-flight reading's file: 6 batches of 16
+LONG_SECONDS = 60.0  # the in-flight check's file: 6 batches of 16
 # Phase 11: the local-attention flags it adds to train.sh's (the heads,
 # dim_head and proj_factor of the local stack are the flags' defaults), its
-# request, its bf16 steps, and the segment at which the CLI's default
+# request, its bf16 Adam steps, and the segment at which the CLI's default
 # (uncentred) framing gives the generator's 128 frames
 LOCAL_ATTN = dict(mask=True, n_blocks_attn_l=1, heads_l=4, dim_head_l=128, proj_factor_l=4)
 MODES_REQUEST_S = 3.7
-MODES_STEPS = 10
+MODES_STEPS = 13
 DB_SEGMENT = 33024
 # Phase 12: 12b's global batch (train.sh's 20, as 10 + 10 on two ranks) with
 # a tail mask keeping 16 rows, so rank 0 keeps 10 and rank 1 keeps 6, the
-# bf16 Adam steps each rank times after its checks, and the seed of its
+# bf16 Adam steps each rank takes after its checks, and the seed of its
 # weights and batch (each rank draws them itself, from this seed); 12a's
 # flags: train.sh's, then 1 epoch of 2 steps on phase 10's corpus (36 train
 # files: the second step a tail of 16) and its save, nothing else firing, on
@@ -318,7 +306,7 @@ DB_SEGMENT = 33024
 # bit for bit)
 DP_BATCH = 20
 DP_REAL_ROWS = 16
-DP_TIMED_STEPS = 4
+DP_BF16_STEPS = 5
 DP_SEED = 12
 DP_REPLICAS = 2
 DP_CLI_FLAGS = TRAIN_CLI_FLAGS + [
@@ -331,12 +319,9 @@ DP_STEP2_BOUNDS = {"f32": 1e-3, "bf16": 2.0 ** -7}
 # (the generator's 128 frames, a 128 x 480 spectrum); its bf16 Adam steps.
 DENSE_GEOMETRY = dict(n_fft=960, hop_length=480, win_length=960, segment_length=127 * 480)
 DENSE_STEPS = 3
-DENSE_TIMED_REQUESTS = 5
-# Phase 14: the program's batch (--export_batch), its timed calls (after 3
-# warm-ups), and the n_fft-480 program (hop 240, 127 hops a segment: the
-# dense forms' path) at a reduced depth
+# Phase 14: the program's batch (--export_batch) and the n_fft-480 program
+# (hop 240, 127 hops a segment: the dense forms' path) at a reduced depth
 EXPORT_BATCH = MAIN_BATCH
-EXPORT_TIMED = 20
 # 14d: the output head that phase 9.1 damps 100x, and the damped program's
 # bound, of the CPU SR's largest value.  Phase 6's 2e-3 cannot see TF32
 # there: the damped generator adds ~1% to the LR band of the SR.  The
@@ -349,31 +334,23 @@ EXPORT_N480 = ["--n_fft", "480", "--hop_length", "240", "--win_length", "480",
                "--n_blocks_global", "1", "--n_blocks_attn_g", "1", "--n_blocks_local", "1"]
 # The fresh process of 14a and 14e: it imports torch and the op module
 # (through serve_export) and nothing else of the port, loads each program
-# (on ``device``; null is the program's default, the card) twice and times
-# each load, serves it on its batches, and reports the launches; where it
-# sees no card, it also asks each program for its default device, which
-# must raise.  argv[1] is a JSON list of [label, program, batches .npy,
-# output .npy, device].
+# (on ``device``; null is the program's default, the card), serves it on
+# its batches, and reports the launches; where it sees no card, it also
+# asks each program for its default device, which must raise.  argv[1] is
+# a JSON list of [label, program, batches .npy, output .npy, device].
 SERVE_CHILD = """
-import json, sys, time
+import json, sys
 import numpy as np, torch
 from mdctgan_tpu_torch.serve_export import load
 from mdctgan_tpu_torch.ops import mdct_kernels as K
 report = {"cuda_available": torch.cuda.is_available()}
-if torch.cuda.is_available():
-    torch.cuda.init()  # the context, so that each load's time is the load's
 for label, program, src, dst, device in json.loads(sys.argv[1]):
-    load_ms = []
-    for _ in range(2):  # the first load in a process also imports the deserializer
-        t0 = time.perf_counter()
-        serve = load(program, device=device)
-        load_ms.append((time.perf_counter() - t0) * 1e3)
+    serve = load(program, device=device)
     batches = np.load(src)
     K.reset_launch_counts()
     np.save(dst, np.stack([serve(torch.from_numpy(b).to(device or "cuda")).cpu().numpy()
                            for b in batches]))
-    report[label] = {"calls": len(batches), "launches": dict(K.LAUNCHES), "load_ms": load_ms,
-                     "device": device}
+    report[label] = {"calls": len(batches), "launches": dict(K.LAUNCHES), "device": device}
     if not torch.cuda.is_available():
         try:
             load(program)
@@ -417,12 +394,6 @@ PATH_BATCHES = {"serving": MAIN_BATCH, "serving_fp16": MAIN_BATCH, "train": TRAI
                 "dp_replicas_serving": MAIN_BATCH // DP_REPLICAS}
 BATCHES = tuple(sorted({1, *PATH_BATCHES.values()}))
 TIMED_BATCHES = tuple(sorted(set(PATH_BATCHES.values())))
-# Published peaks: float32 FMA rate outside the tensor cores, memory rate,
-# dense TF32 tensor-core rate.
-PEAKS = {"sxm": (67e12, 3.35e12, 495e12), "pcie": (51e12, 2.0e12, 378e12)}
-# K1's epilogue and K2's prologue per spectrum value: the gain, asinh or
-# sinh, the ln10 scale and the affine FMA, one operation each.
-AFFINE_OPS = 4
 # How many times the port's bf16 error on the CPU (against a float64 truth)
 # the card's bf16 error may be: the CPU tests hold the port's bf16 to 2x the
 # JAX package's (tests/test_torch_bf16.py), and the card's bf16 rounds at
@@ -430,14 +401,6 @@ AFFINE_OPS = 4
 BF16_FACTOR = 2.0
 # One bf16 step (2^-8 relative): the floor of the bf16 losses' bound.
 BF16_STEP = 2.0 ** -8
-
-
-def mdct_frame_ops(n: int) -> float:
-    """Operations of one N-point MDCT or IMDCT frame the fast way, through an
-    N/4-point complex FFT: the window (N), the fold (N/2), two twiddle passes
-    of N/4 complex products (6 each) and the FFT (5 (N/4) log2(N/4))."""
-    m = n // 4
-    return n + n / 2 + 2 * 6 * m + 5 * m * math.log2(m)
 
 
 def emit(obj) -> None:
@@ -563,9 +526,9 @@ def device_ms(fn, calls: int = 20):
     return sum(e.self_device_time_total for e in kernels) / count / 1e3 if count else None
 
 
-def train_phase(rng, smi: str, dev: torch.device):
+def train_phase(rng, dev: torch.device):
     """Phase 8; returns each kernel's launches in the float32 and the bf16
-    Adam runs, and each one's step timing."""
+    Adam runs."""
     from mdctgan_tpu_torch.configs import flagship_opt
     from mdctgan_tpu_torch.data.synthetic import speech_like
     from mdctgan_tpu_torch.models.discriminator import build_discriminator
@@ -578,9 +541,9 @@ def train_phase(rng, smi: str, dev: torch.device):
     from mdctgan_tpu_torch.train.schedule import make_optimizers
     from mdctgan_tpu_torch.train.state import create_train_state
     from mdctgan_tpu_torch.train.step import build_train_step
-    from mdctgan_tpu_torch.utils import profiling
     from mdctgan_tpu_torch.weights import random_jax_trees, state_dict_from_jax
 
+    t_phase = time.perf_counter()
     opt = flagship_opt()
     tro = train_options(opt)
     cfg = spectral_config_from_opt(opt)
@@ -610,7 +573,7 @@ def train_phase(rng, smi: str, dev: torch.device):
     batch = GT.inputs("noise", rng, 2, seg)
     card_t, cpu_t = SpectralTransform(cfg, dev), SpectralTransform(cfg, cpu)
     f64_t = SpectralTransform(cfg, cpu, torch.float64)
-    runs, secs = {}, {}
+    runs = {}
     for name, device, dtype, transform, tf32 in (
             ("cpu", cpu, torch.float32, GT.SharedSpectra(cpu_t, card_t), False),
             ("cpu_own_spectra", cpu, torch.float32, cpu_t, False),
@@ -618,11 +581,8 @@ def train_phase(rng, smi: str, dev: torch.device):
             ("f64_cpu_spectra", cpu, torch.float64, GT.SharedSpectra(f64_t, cpu_t), False),
             ("card", dev, torch.float32, card_t, False),
             ("card_tf32", dev, torch.float32, card_t, True)):
-        t0 = time.perf_counter()
         runs[name] = GT.sgd_step(opt, GT.load_nets(opt, g_sd, d_sd, dtype), transform, batch,
                                  device, allow_tf32=tf32)
-        secs[name] = time.perf_counter() - t0
-    emit({"train_step_s": secs, "batch": 2, "cpu_threads": torch.get_num_threads()})
     moved = {net: {k: float((t - runs["f64_cpu_spectra"][1][net][k]).norm())
                    for k, t in runs["f64_card_spectra"][1][net].items()} for net in GT.BOUNDS}
     emit({"reading": "float64 step, card's spectra against the CPU's",
@@ -675,11 +635,8 @@ def train_phase(rng, smi: str, dev: torch.device):
     opt16 = dict(opt, fp16=True)
     for name, device, transform in (("cpu_bf16", cpu, GT.SharedSpectra(cpu_t, card_t)),
                                     ("card_bf16", dev, card_t)):
-        t0 = time.perf_counter()
         runs[name] = GT.sgd_step(opt16, GT.load_nets(opt16, g_sd, d_sd), transform, batch,
                                  device)
-        secs[name] = time.perf_counter() - t0
-    emit({"train_step_s": {k: secs[k] for k in ("cpu_bf16", "card_bf16")}, "batch": 2})
     truth_losses, truth_grads = runs["f64_card_spectra"]
 
     def loss_rel(run):
@@ -713,8 +670,8 @@ def train_phase(rng, smi: str, dev: torch.device):
 
     # 8c. the trainer: flagship Adam at batch 20, float32 then bf16 ------------
     def trainer(precision: str, run_opt: dict):
-        """``TRAIN_STEPS[precision]`` Adam steps (checked), then the step's
-        timings; returns the steps' kernel launches and the timing."""
+        """``TRAIN_STEPS[precision]`` Adam steps, checked; returns their
+        kernel launches."""
         steps = TRAIN_STEPS[precision]
         spe = 1000  # the schedule is flat through the first 60 epochs at any size
         g_tx, d_tx = make_optimizers(tro["lr"], tro["beta1"], tro["niter"], tro["niter_decay"],
@@ -745,81 +702,9 @@ def train_phase(rng, smi: str, dev: torch.device):
         expected["mdct_spectro"] = 2 * steps
         if launches != expected:
             raise AssertionError(f"{precision} train launches {launches}, expected {expected}")
+        return launches
 
-        marks = ("k1", "g_forward", "d_forward", "backward", "optimizer")
-        host = []
-
-        def timed_step(i, mark=None):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            t0 = time.perf_counter()
-            step(state, batches[i % 2], mark=mark)
-            host.append((time.perf_counter() - t0) * 1e3)  # the host's time to enqueue
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end)
-
-        torch.cuda.reset_peak_memory_stats()
-        for i in range(3):
-            timed_step(i)
-        host.clear()
-        times = [timed_step(i) for i in range(20)]
-        host_ms = statistics.median(host)
-        step_ms = statistics.median(times)
-        peak = torch.cuda.max_memory_allocated()
-        parts = {name: [] for name in marks}
-        for i in range(5):
-            events = {}
-
-            def mark(name, events=events):
-                events[name] = torch.cuda.Event(enable_timing=True)
-                events[name].record()
-
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
-            step(state, batches[i % 2], mark=mark)
-            events["optimizer"].synchronize()
-            prev = start
-            for name in marks:
-                parts[name].append(prev.elapsed_time(events[name]))
-                prev = events[name]
-
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(3):
-                step(state, batches[i % 2])
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-        # busy time: the union of the device records' intervals (annotations
-        # left out), so overlapping records are not counted twice
-        records = profiling.device_intervals(prof)
-        busy_ms = profiling.busy_time_ms(prof, 3)
-        kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-        total_us = sum(e.self_device_time_total for e in kernels)
-        # cuDNN's FFT-tiled convolutions (ROADMAP item A) by their kernels'
-        # names: the FFTs and the complex float32 GEMMs between them
-        fft_us = sum(e.self_device_time_total for e in kernels
-                     if "fft" in e.key.lower() or "cf32" in e.key.lower())
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-        timing = {"name": "train_step", "precision": precision, "card": smi,
-                  "batch": TRAIN_BATCH, "ms": step_ms, "ms_min": min(times),
-                  "ms_max": max(times), "samples_per_s": TRAIN_BATCH / step_ms * 1e3,
-                  "host_enqueue_ms": host_ms, "max_memory_allocated_bytes": peak,
-                  "parts_ms": {k: statistics.median(v) for k, v in parts.items()},
-                  "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                  "device_idle_share": 1.0 - busy_ms / wall_ms,
-                  "device_records_per_step": len(records) / 3,
-                  "fft_tiled_share_of_device_time": fft_us / total_us,
-                  "top_kernels": [{"name": e.key[:100], "count": e.count / 3,
-                                   "ms": e.self_device_time_total / 1e3 / 3} for e in top]}
-        emit({"timing": timing})
-        return launches, timing
-
-    train_launches, timing = trainer("f32", opt)
+    train_launches = trainer("f32", opt)
 
     # 8d. the tail batch: 13 real rows of 20 against a batch of 13 ---------------
     mask = (torch.arange(TRAIN_BATCH, device=dev) < 13).float()
@@ -834,16 +719,12 @@ def train_phase(rng, smi: str, dev: torch.device):
     check("masked tail batch vs smaller batch (losses, max rel)", tail_rel, 1e-3, **tail)
     del m_grads, s_grads
 
-    bf16_launches, bf16_timing = trainer("bf16", opt16)
-    emit({"reading": "train step bf16 against float32, same run",
-          "ms": {"f32": timing["ms"], "bf16": bf16_timing["ms"]},
-          "speedup": timing["ms"] / bf16_timing["ms"],
-          "peak_bytes": {"f32": timing["max_memory_allocated_bytes"],
-                         "bf16": bf16_timing["max_memory_allocated_bytes"]}})
-    return train_launches, timing, bf16_launches, bf16_timing
+    bf16_launches = trainer("bf16", opt16)
+    emit({"phase": 8, "phase_s": time.perf_counter() - t_phase})
+    return train_launches, bf16_launches
 
 
-def generate_phase(rng, smi: str, dev: torch.device) -> dict:
+def generate_phase(rng, dev: torch.device) -> dict:
     """Phase 9; returns each kernel's launches in the checked batch-mode
     run on the card."""
     from mdctgan_tpu_torch import api, generate_cli
@@ -967,49 +848,18 @@ def generate_phase(rng, smi: str, dev: torch.device) -> dict:
               "output_max_abs_err": max_err(torch.tanh(card_logits[True]), torch.tanh(cpu_logits))})
         del card_net, cpu_net, card_logits
 
-        # 9.6 the batch-mode run, bf16 then float32, each timed after a
-        # warm-up file; its set-up and each file are this run's own, as
-        # ``main`` returns them
-        audio_s = sum(GENERATE_SECONDS)
-        for precision, flags in (("bf16", GENERATE_FLAGS), ("f32", f32_flags)):
-            run(f"warmup_{precision}", tmp / "first.csv", *cuda_id, flags=flags)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            timed = run(f"timed_{precision}", wavs, *cuda_id, flags=flags)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-            peak = torch.cuda.max_memory_allocated()
-            per_file = {Path(p).stem: ms for p, ms in timed["file_ms"].items()}
-            # read, not asserted: a second run at api.upsample's batch, where
-            # each file pads to 8 segments, not 16
-            per_file_8 = {Path(p).stem: ms for p, ms in run(
-                f"batch8_{precision}", wavs, *cuda_id, "--batchSize", str(MAIN_BATCH),
-                flags=flags)["file_ms"].items()}
-            emit({"timing": {"name": "generate_batch_mode", "precision": precision,
-                             "card": smi, "files": len(names), "audio_s": audio_s,
-                             "batch": bs, "wall_ms": wall_ms,
-                             "ms_per_audio_s": wall_ms / audio_s,
-                             "files_per_s": len(names) / wall_ms * 1e3,
-                             "max_memory_allocated_bytes": peak,
-                             "setup_ms": timed["setup_ms"], "file_ms": per_file,
-                             "setup_share": timed["setup_ms"] / wall_ms,
-                             "files_ms_per_audio_s": sum(per_file.values()) / audio_s,
-                             f"second_run_file_ms_batch{MAIN_BATCH}": per_file_8}})
-
         # 9.7 the in-flight window of api.serve_segments: one 60 s file (6
         # batches of 16, bf16) with 1 batch in flight (a synchronous loop)
-        # and 2, alternated; its time is read, its SR must not change
+        # and 2; its SR must not change
         long_dir = tmp / "long"
         long_dir.mkdir()
         native.write_wav16(str(long_dir / "speech_60s.wav"),
                            speech_like(rng, LONG_SECONDS, 48000), 48000)
-        window, outputs = {1: [], 2: []}, {}
+        outputs = {}
         default = api.IN_FLIGHT
-        for n in (1, 2, 2, 1):
+        for n in (1, 2):
             api.IN_FLIGHT = n
             r = run(f"in_flight_{n}", long_dir, *cuda_id)
-            window[n].append(next(iter(r["file_ms"].values())))
             outputs[n] = (native.read(str(Path(r["out_dir"]) / r["rows"][0]["output"]))[0],
                           {k: r["rows"][0][k] for k in ("mse", "snr_sr", "snr_seg", "lsd")})
         api.IN_FLIGHT = default
@@ -1017,18 +867,12 @@ def generate_phase(rng, smi: str, dev: torch.device) -> dict:
               0.0, metrics_equal=outputs[2][1] == outputs[1][1])
         if outputs[2][1] != outputs[1][1]:
             raise AssertionError(f"in-flight metrics {outputs[2][1]} != {outputs[1][1]}")
-        med = {n: statistics.median(v) for n, v in window.items()}
-        emit({"timing": {"name": "generate_in_flight", "card": smi, "audio_s": LONG_SECONDS,
-                         "batch": bs, "file_ms": window, "median_ms": med,
-                         "gain_ms": med[1] - med[2], "gain_share": 1.0 - med[2] / med[1],
-                         "phase_s": time.perf_counter() - t_phase}})
+    emit({"phase": 9, "phase_s": time.perf_counter() - t_phase})
     return launches
 
 
-def train_cli_phase(smi: str, dev: torch.device, bare_step: dict,
-                    flags=TRAIN_CLI_FLAGS) -> dict:
-    """Phase 10; returns each kernel's launches in the checked run, and its
-    median print-only step."""
+def train_cli_phase(dev: torch.device, flags=TRAIN_CLI_FLAGS) -> dict:
+    """Phase 10; returns each kernel's launches in the checked run."""
     import contextlib
     import io
 
@@ -1092,13 +936,9 @@ def train_cli_phase(smi: str, dev: torch.device, bare_step: dict,
               "bound": 1e-5 * float(refs[1]["lr_audio"].abs().max())})
 
         # 10b. the run: 3 epochs, 6 steps
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
         K.reset_launch_counts()
         run = train_cli.main(argv)
         launches = dict(K.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
         out = tmp / "out" / "run"
         steps, evals = run["steps"], run["evals"]
         displays = sum("display" in s["fired"] for s in steps)
@@ -1112,7 +952,9 @@ def train_cli_phase(smi: str, dev: torch.device, bare_step: dict,
         emit({"train_cli_run": {"steps": len(steps), "losses": losses, "lrs": run["lrs"],
                                 "expected_lrs": want_lrs, "eval": eval_rows,
                                 "fired": [s["fired"] for s in steps], "launches": launches,
-                                "eval_batches": eval_batches, "displays": displays}})
+                                "eval_batches": eval_batches, "displays": displays,
+                                "checkpoint_bytes": run["writes"][-1]["bytes"]
+                                if run["writes"] else None}})
         if not (len(steps) == 6 and len(losses) == 6
                 and all(math.isfinite(v) for row in losses for v in row.values())):
             raise AssertionError(f"train CLI: {len(steps)} steps, losses {losses}")
@@ -1149,11 +991,9 @@ def train_cli_phase(smi: str, dev: torch.device, bare_step: dict,
         # 10g. train -> export -> generate: the run's ckpt/ exported to
         # reference .pth files (no device work), served strictly, the same SR
         # as serving the ckpt/ (10e) within phase 9's waveform bound
-        t0 = time.perf_counter()
         paths = export_torch_cli.main(flags + cuda_id + [
             "--load_pretrain", str(out), "--export_dir", str(tmp / "exported"),
             "--checkpoints_dir", str(tmp / "gen")])
-        export_ms = (time.perf_counter() - t0) * 1e3
         pth_run = generate_cli.main(flags + cuda_id + [
             "--load_pretrain", str(tmp / "exported"), "--checkpoints_dir", str(tmp / "gen"),
             "--name", "gen_pth",
@@ -1165,7 +1005,7 @@ def train_cli_phase(smi: str, dev: torch.device, bare_step: dict,
         scale = float(np.abs(sr_ckpt).max())
         check("generate from the exported .pth vs from the ckpt/ (SR WAV)",
               float(np.abs(sr_pth - sr_ckpt).max()), 2e-3 * scale, max_abs_ref=scale,
-              files=[Path(p).name for p in paths], export_ms=export_ms,
+              files=[Path(p).name for p in paths],
               pth_bytes=sum(Path(p).stat().st_size for p in paths))
 
         # 10c. resume: the restored state is the one the first run ended with
@@ -1247,35 +1087,11 @@ def train_cli_phase(smi: str, dev: torch.device, bare_step: dict,
                   batch=bs, **spread)
             torch.cuda.empty_cache()
 
-        # 10f. numbers
-        profiled = set(range(opt.profile_step + 1, opt.profile_step + opt.profile_nsteps + 1))
-        clean = [s["ms"] for s in steps[1:] if s["fired"] == ["print"]
-                 and s["step"] not in profiled]
-        writes = run["writes"]
-        prof = run["profile"]
-        emit({"timing": {
-            "name": "train_cli", "card": smi, "batch": bs, "steps": len(steps),
-            "setup_ms": run["setup_ms"],
-            "step_ms": [s["ms"] for s in steps], "fired": [s["fired"] for s in steps],
-            "median_step_ms_after_first": statistics.median(clean) if clean else None,
-            "clean_steps": len(clean), "bare_step_ms_phase8": bare_step["ms"],
-            "bare_step_profiled_wall_ms_phase8": bare_step["profiled_wall_ms"],
-            "bare_step_idle_share_phase8": bare_step["device_idle_share"],
-            "next_ms": [s["next_ms"] for s in steps],
-            "median_next_ms_after_first": statistics.median(s["next_ms"] for s in steps[1:]),
-            "profiled_steps": sorted(profiled), "profile": prof,
-            "eval_ms": [e["ms"] for e in evals],
-            "eval_ms_per_batch": sum(e["ms"] for e in evals) / eval_batches,
-            "checkpoint_bytes": writes[-1]["bytes"] if writes else None,
-            "save_blocking_ms": [sv["blocking_ms"] for sv in run["saves"]],
-            "save_snapshot_ms": [w["snapshot_ms"] for w in writes],
-            "save_background_ms": [w["write_ms"] for w in writes],
-            "max_memory_allocated_bytes": peak,
-            "phase_s": time.perf_counter() - t_phase}})
-    return launches, {"median_step_ms_after_first": statistics.median(clean) if clean else None}
+    emit({"phase": 10, "phase_s": time.perf_counter() - t_phase})
+    return launches
 
 
-def modes_phase(rng, smi: str, dev: torch.device, bf16_step: dict) -> dict:
+def modes_phase(rng, dev: torch.device) -> dict:
     """Phase 11; returns each kernel's launches on the paths that run K1/K2
     (11a serving and its bf16 step, 11b serving)."""
     from mdctgan_tpu_torch import api, generate_cli
@@ -1299,7 +1115,6 @@ def modes_phase(rng, smi: str, dev: torch.device, bf16_step: dict) -> dict:
     t_phase = time.perf_counter()
     cpu = torch.device("cpu")
     request = speech_like(rng, MODES_REQUEST_S)  # at 16 kHz, the LR input
-    audio_s = MODES_REQUEST_S
     paths = {}
 
     def counted(fn):
@@ -1313,9 +1128,9 @@ def modes_phase(rng, smi: str, dev: torch.device, bf16_step: dict) -> dict:
     def serve(label: str, opt: dict, state: dict, fused: bool, precisions=("f32",),
               compare_s: float = MODES_REQUEST_S) -> dict:
         """``api.upsample`` of the request on the card in each precision
-        (counted, timed), card against CPU in float32 on the waveform of
-        its first ``compare_s`` seconds and on the logits of 2 segments;
-        returns the launches summed over the precisions."""
+        (counted), card against CPU in float32 on the waveform of its first
+        ``compare_s`` seconds and on the logits of 2 segments; returns the
+        launches summed over the precisions."""
         total = {name: 0 for name in K.LAUNCHES}
         for precision in precisions:
             o = dict(opt, fp16=precision == "bf16")
@@ -1334,29 +1149,15 @@ def modes_phase(rng, smi: str, dev: torch.device, bf16_step: dict) -> dict:
             if fused != kernels_ran or dense or (fused == (matmuls["mdct_matmul"] > 0)):
                 raise AssertionError(f"{label} {precision}: launches {launches}, matmul form "
                                      f"{matmuls}, fused {fused}")
-            walls = []  # as phase 7 times the flagship: a warm-up, then 20
-            for _ in range(21):
-                t0 = time.perf_counter()
-                api.upsample(request, 16000, model, is_lr_input=True, gen_overlap=512,
-                             batch_size=MAIN_BATCH)
-                walls.append((time.perf_counter() - t0) * 1e3)
             seg = model.transform.cfg.segment_length
+            # drawn in every precision, so that each later draw from rng keeps
+            # its input; only float32's logits check reads it
             x = torch.from_numpy(speech_like(rng, MAIN_BATCH * seg / 16000)[
                 : MAIN_BATCH * seg].reshape(MAIN_BATCH, seg)).to(dev)
-            with torch.inference_mode():
-                g_in = model.transform.g_input(model.transform.lr_forward(x)[0])
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                gen_ms = time_ms(lambda: model.generator(g_in), runs=20, inner=1)
-            wall = statistics.median(walls[1:])
-            emit({"timing": {"name": f"{label}_serving", "precision": precision, "card": smi,
-                             "request_s": audio_s, "ms": wall,
-                             "ms_per_audio_s": wall / audio_s, "launches": launches,
-                             "matmul_form_calls": matmuls,
-                             "generator_forward_ms": gen_ms, "batch": MAIN_BATCH,
-                             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}})
             if precision != "f32":
                 continue
+            with torch.inference_mode():
+                g_in = model.transform.g_input(model.transform.lr_forward(x)[0])
             cpu_model = api.create_model(o, "cpu", state_dict=state)
             part = request[: round(compare_s * 16000)]
             if len(part) < len(request):
@@ -1399,7 +1200,7 @@ def modes_phase(rng, smi: str, dev: torch.device, bf16_step: dict) -> dict:
           max(abs(card_losses[k] - v) / abs(v) for k, v in cpu_losses.items()), 1e-3,
           batch=2, card=card_losses, cpu=cpu_losses)
     mark("11a SGD step")
-    # the bf16 step at batch 20: median of 10 after 3 warm-ups, by CUDA events
+    # the bf16 Adam step at batch 20, MODES_STEPS times
     opt_a16 = dict(opt_a, fp16=True)
     tro = train_options(opt_a16)
     g_tx, d_tx = make_optimizers(tro["lr"], tro["beta1"], tro["niter"], tro["niter_decay"], 1000)
@@ -1413,36 +1214,17 @@ def modes_phase(rng, smi: str, dev: torch.device, bf16_step: dict) -> dict:
     batch20 = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
 
     def steps():
-        times, history = [], []
-        torch.cuda.reset_peak_memory_stats()
-        for i in range(3 + MODES_STEPS):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            _, metrics = step(state, batch20)
-            end.record()
-            end.synchronize()
-            history.append({k: float(v) for k, v in metrics.items()})
-            if i >= 3:
-                times.append(start.elapsed_time(end))
-        return times, history
+        return [{k: float(v) for k, v in step(state, batch20)[1].items()}
+                for _ in range(MODES_STEPS)]
 
-    (times, history), launches, matmuls = counted(steps)
+    history, launches, matmuls = counted(steps)
     if not all(math.isfinite(v) for h in history for v in h.values()):
         raise AssertionError("11a: a bf16 train loss is not finite")
     expected = {name: 0 for name in K.LAUNCHES}
-    expected["mdct_spectro"] = 2 * (3 + MODES_STEPS)
+    expected["mdct_spectro"] = 2 * MODES_STEPS
     if launches != expected or any(matmuls.values()):
         raise AssertionError(f"11a step launches {launches}, matmul form {matmuls}")
     paths["local_attn_train_fp16"] = launches
-    step_ms = statistics.median(times)
-    emit({"timing": {"name": "11a_train_step", "precision": "bf16", "card": smi,
-                     "batch": TRAIN_BATCH, "ms": step_ms, "ms_min": min(times),
-                     "ms_max": max(times), "samples_per_s": TRAIN_BATCH / step_ms * 1e3,
-                     "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-                     "phase8_flagship_bf16_ms": bf16_step["ms"],
-                     "over_flagship": step_ms / bf16_step["ms"] - 1.0,
-                     "losses_last": history[-1]}})
     del state, step, batch20
     mark("11a bf16 steps")
 
@@ -1482,9 +1264,8 @@ def modes_phase(rng, smi: str, dev: torch.device, bf16_step: dict) -> dict:
                 str(tmp / "pretrained"), *extra])
 
         cuda_id = ["--gpu_ids", str(dev.index or 0)]
-        card_c, launches, matmuls = counted(lambda: run("c_card", *cuda_id))
-        emit({"generate_run": {"phase": "11c", "launches": launches, "matmul_form": matmuls,
-                               "setup_ms": card_c["setup_ms"], "file_ms": card_c["file_ms"]}})
+        _, launches, matmuls = counted(lambda: run("c_card", *cuda_id))
+        emit({"generate_run": {"phase": "11c", "launches": launches, "matmul_form": matmuls}})
         if any(launches.values()) or not (matmuls["mdct_matmul"] > 0
                                           and matmuls["imdct_matmul"] > 0):
             raise AssertionError(f"11c launches {launches}, matmul form {matmuls}")
@@ -1565,11 +1346,11 @@ def dp_rank(ranks, seed: int, updates_path: str) -> dict:
     """Phase 12b in one rank (``parallel.mesh.spawn``; the two ranks share
     the card over gloo): the flagship's SGD(1) step on this rank's rows of
     the global batch, in float32 and with TF32 allowed (the control), then
-    ``DP_TIMED_STEPS`` bf16 Adam steps timed after one warm-up.  The
-    weights and the batch come from ``seed``, as in the parent.  Rank 0
-    saves both steps' updates to ``updates_path``; every rank returns its
-    losses, the digest of its nets after each step, its launches, its times
-    and TF32's setting as the fresh process found it."""
+    ``DP_BF16_STEPS`` bf16 Adam steps.  The weights and the batch come from
+    ``seed``, as in the parent.  Rank 0 saves both steps' updates to
+    ``updates_path``; every rank returns its losses, the digest of its nets
+    after each step, its launches and TF32's setting as the fresh process
+    found it."""
     import hashlib
 
     from mdctgan_tpu_torch.configs import flagship_opt
@@ -1598,15 +1379,13 @@ def dp_rank(ranks, seed: int, updates_path: str) -> dict:
     local = {k: v[rows] for k, v in batch.items()}
     mask = (torch.arange(DP_BATCH, device=dev) < DP_REAL_ROWS).float()[rows]
     transform = SpectralTransform(cfg, dev)
-    updates, out["losses"], out["digest"], out["step_s"] = {}, {}, {}, {}
+    updates, out["losses"], out["digest"] = {}, {}, {}
     with float32_policy():
         for name, tf32 in (("f32", False), ("tf32", True)):
             nets = GT.load_nets(opt, g_sd, d_sd)
-            t0 = time.perf_counter()
             out["losses"][name], updates[name] = GT.sgd_step(
                 opt, nets, transform, local, dev, allow_tf32=tf32, sample_mask=mask,
                 ranks=ranks)
-            out["step_s"][name] = time.perf_counter() - t0
             h = hashlib.sha256()
             for net in nets.values():
                 for t in net.state_dict().values():
@@ -1631,27 +1410,20 @@ def dp_rank(ranks, seed: int, updates_path: str) -> dict:
         step = build_train_step(transform, g_tx, d_tx, n_layers_d=tro["n_layers_D"],
                                 num_d=tro["num_D"], ranks=ranks)
         on_card = {k: torch.from_numpy(v).to(dev) for k, v in local.items()}
-        times, losses = [], []
-        for _ in range(DP_TIMED_STEPS + 1):
-            t0 = time.perf_counter()
+        losses = []
+        for _ in range(DP_BF16_STEPS):
             state, metrics = step(state, on_card)
-            # float() waits for the step; the next step's collectives wait
-            # for the other rank
             losses.append({k: float(v) for k, v in metrics.items()})
-            times.append((time.perf_counter() - t0) * 1e3)
-        out.update(bf16_step_ms=times[1:], bf16_losses=losses, launches=dict(K.LAUNCHES),
-                   max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev)
-                   if dev.type == "cuda" else None)
+        out.update(bf16_losses=losses, launches=dict(K.LAUNCHES))
     return out
 
 
-def parallel_phase(smi: str, dev: torch.device, bare_step: dict, cli_step: dict) -> dict:
+def parallel_phase(dev: torch.device) -> dict:
     """Phase 12, data parallelism on the one card: (a) the train CLI as one
-    ``--multihost`` rank over NCCL against the single-card run, and the
-    world-1 step's collective cost; (b) two ranks sharing the card over
-    gloo against one rank; (c) ``api.upsample`` over two replicas on the
-    card against one; (d) ``--gpu_ids 0,1`` refused.  Returns each kernel's
-    launches on the three paths."""
+    ``--multihost`` rank over NCCL against the single-card run; (b) two
+    ranks sharing the card over gloo against one rank; (c) ``api.upsample``
+    over two replicas on the card against one; (d) ``--gpu_ids 0,1``
+    refused.  Returns each kernel's launches on the three paths."""
     import os
 
     from mdctgan_tpu_torch import api, generate_cli, train_cli
@@ -1661,12 +1433,9 @@ def parallel_phase(smi: str, dev: torch.device, bare_step: dict, cli_step: dict)
     from mdctgan_tpu_torch.models.generator import build_generator
     from mdctgan_tpu_torch.ops import mdct_kernels as K
     from mdctgan_tpu_torch.ops.features import SpectralTransform
-    from mdctgan_tpu_torch.options import spectral_config_from_opt, train_options
+    from mdctgan_tpu_torch.options import spectral_config_from_opt
     from mdctgan_tpu_torch.parallel import mesh
     from mdctgan_tpu_torch.train import grad_truth as GT
-    from mdctgan_tpu_torch.train.schedule import make_optimizers
-    from mdctgan_tpu_torch.train.state import create_train_state
-    from mdctgan_tpu_torch.train.step import build_train_step
     from mdctgan_tpu_torch.weights import random_jax_trees, state_dict_from_jax
 
     t_phase = time.perf_counter()
@@ -1696,7 +1465,6 @@ def parallel_phase(smi: str, dev: torch.device, bare_step: dict, cli_step: dict)
             data = ["--dataroot", str(tmp / "corpus" / "train.csv"),
                     "--evalroot", str(tmp / "corpus" / "eval.csv")]
             cli_launches = {name: 0 for name in K.LAUNCHES}
-            cli_runs = {}
             card = ["--gpu_ids", "0" if dev.type == "cuda" else "-1"]
             # Step 1 reads the same bits in both runs (the same batch and
             # state; at world 1 the shares and the summed statistics are the
@@ -1751,70 +1519,8 @@ def parallel_phase(smi: str, dev: torch.device, bare_step: dict, cli_step: dict)
                       "(losses, rel)", rel(losses["multihost"], losses["single"], 1),
                       DP_STEP2_BOUNDS[precision], control_two_single_card_runs=rel(
                           losses["single_again"], losses["single"], 1))
-                cli_runs[precision] = {kind: {
-                    "step_ms": [st["ms"] for st in r["steps"]],
-                    "agree_ms": [st["agree_ms"] for st in r["steps"]],
-                    "setup_ms": r["setup_ms"],
-                    "save_blocking_ms": [sv["blocking_ms"] for sv in r["saves"]]}
-                    for kind, r in runs.items()}
             paths["dp_multihost_train_cli"] = cli_launches
-            emit({"dp_train_cli_runs": cli_runs, "card": smi})
             part_done("12a_cli")
-
-            # the world-1 step's collectives: the bf16 step with and without
-            # the group, in turns on the same card; and one host agreement
-            opt16 = dict(opt, fp16=True)
-            tro = train_options(opt16)
-            g_tx, d_tx = make_optimizers(tro["lr"], tro["beta1"], tro["niter"],
-                                         tro["niter_decay"], 1000)
-            noise = GT.inputs("noise", np.random.default_rng(SEED), TRAIN_BATCH, seg)
-            batch = {k: torch.from_numpy(v).to(dev) for k, v in noise.items()}
-            one_rank_env()
-            ranks = mesh.init_multihost(dev.type)
-            try:
-                runs = {}
-                for kind, r in (("plain", None), ("world1", ranks)):
-                    state = create_train_state(
-                        build_generator(opt16), build_discriminator(opt16), g_tx, d_tx,
-                        device=dev, rng=torch.Generator().manual_seed(SEED), ranks=r)
-                    step = build_train_step(SpectralTransform(cfg, dev), g_tx, d_tx,
-                                            n_layers_d=tro["n_layers_D"], num_d=tro["num_D"],
-                                            ranks=r)
-                    runs[kind] = (state, step, [])
-
-                def timed(kind):
-                    state, step, times = runs[kind]
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    step(state, batch)
-                    end.record()
-                    end.synchronize()
-                    times.append(start.elapsed_time(end))
-
-                for i in range(12):  # in turns; the first two of each warm up
-                    for kind in (("plain", "world1") if i % 2 else ("world1", "plain")):
-                        timed(kind)
-                agree = []
-                for _ in range(50):
-                    t0 = time.perf_counter()
-                    mesh.any_rank(False, ranks)
-                    agree.append((time.perf_counter() - t0) * 1e3)
-                ms = {kind: statistics.median(runs[kind][2][2:]) for kind in runs}
-                emit({"timing": {
-                    "name": "dp_world1_step_overhead", "card": smi, "precision": "bf16",
-                    "batch": TRAIN_BATCH, "plain_ms": ms["plain"], "world1_ms": ms["world1"],
-                    "collective_overhead_ms": ms["world1"] - ms["plain"],
-                    "plain_ms_all": runs["plain"][2], "world1_ms_all": runs["world1"][2],
-                    "phase8_bare_step_ms": bare_step["ms"],
-                    "phase10_cli_step_ms": cli_step.get("median_step_ms_after_first"),
-                    "agree_ms_median": statistics.median(agree),
-                    "agree_ms_max": max(agree)}})
-                del runs
-            finally:
-                torch.distributed.destroy_process_group()
-            torch.cuda.empty_cache()
-            part_done("12a_overhead")
 
             # 12b. two ranks on the card over gloo (NCCL refuses two ranks on
             # one device) against one rank, at batch 20 = 10 + 10 with a tail
@@ -1828,11 +1534,8 @@ def parallel_phase(smi: str, dev: torch.device, bare_step: dict, cli_step: dict)
             global_batch = GT.inputs("noise", rng, DP_BATCH, seg)
             mask = (torch.arange(DP_BATCH, device=dev) < DP_REAL_ROWS).float()
             card_t = SpectralTransform(cfg, dev)
-            t0 = time.perf_counter()
             ref_losses, ref = GT.sgd_step(opt, GT.load_nets(opt, g_sd, d_sd), card_t,
                                           global_batch, dev, sample_mask=mask)
-            one_rank_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
             f64_t = SpectralTransform(cfg, dev, torch.float64)
             truths = [GT.sgd_step(opt, GT.load_nets(opt, g_sd, d_sd, torch.float64),
                                   GT.SharedSpectra(f64_t, source), global_batch, dev,
@@ -1840,7 +1543,6 @@ def parallel_phase(smi: str, dev: torch.device, bare_step: dict, cli_step: dict)
                       for source in (card_t, SpectralTransform(cfg, cpu))]
             moved = {net: {k: float((t - truths[1][net][k]).norm())
                            for k, t in truths[0][net].items()} for net in GT.BOUNDS}
-            f64_s = time.perf_counter() - t0
             del truths, g_sd, d_sd
             torch.cuda.empty_cache()
             part_done("12b_reference")
@@ -1863,7 +1565,8 @@ def parallel_phase(smi: str, dev: torch.device, bare_step: dict, cli_step: dict)
                      for k, v in ref_losses.items())
     result = {"batch": DP_BATCH, "real_rows": DP_REAL_ROWS, "ranks": 2, "backend": "gloo",
               "losses_one_rank": ref_losses, "losses_two_ranks": first["losses"]["f32"],
-              "one_rank_step_s": one_rank_s, "f64_truths_s": f64_s}
+              "cudnn_allow_tf32_at_rank_start": [r["cudnn_allow_tf32_at_start"]
+                                                 for r in ranks_out]}
     shares = {}
     for name in ("f32", "tf32"):
         for net, rel in GT.BOUNDS.items():
@@ -1883,22 +1586,13 @@ def parallel_phase(smi: str, dev: torch.device, bare_step: dict, cli_step: dict)
           max(shares["f32", net] for net in GT.BOUNDS), 1.0)
     launches = {name: sum(r["launches"][name] for r in ranks_out) for name in K.LAUNCHES}
     expected = {name: 0 for name in K.LAUNCHES}
-    expected["mdct_spectro"] = 2 * 2 * (2 + DP_TIMED_STEPS + 1)  # two ranks, K1 twice a step
+    expected["mdct_spectro"] = 2 * 2 * (2 + DP_BF16_STEPS)  # two ranks, K1 twice a step
     if launches != expected:
         raise AssertionError(f"12b launches {launches}, expected {expected}")
     if not all(math.isfinite(v) for r in ranks_out for row in r["bf16_losses"]
                for v in row.values()):
         raise AssertionError("12b: a bf16 loss is not finite")
     paths["dp_two_ranks_train"] = launches
-    emit({"timing": {
-        "name": "dp_two_ranks_step", "card": smi, "backend": "gloo, two ranks on one card",
-        "batch_per_rank": DP_BATCH // 2, "precision": "bf16",
-        "step_ms": {r["rank"]: r["bf16_step_ms"] for r in ranks_out},
-        "median_step_ms": {r["rank"]: statistics.median(r["bf16_step_ms"]) for r in ranks_out},
-        "sgd_step_s": {r["rank"]: r["step_s"] for r in ranks_out},
-        "cudnn_allow_tf32_at_rank_start": [r["cudnn_allow_tf32_at_start"] for r in ranks_out],
-        "max_memory_allocated_bytes": {r["rank"]: r["max_memory_allocated_bytes"]
-                                       for r in ranks_out}}})
 
     # 12c. api.upsample over two replicas on the card against one, at the
     # serving chain's bound
@@ -1922,16 +1616,6 @@ def parallel_phase(smi: str, dev: torch.device, bare_step: dict, cli_step: dict)
     check("12c: upsample over two replicas on the card vs one (waveform)",
           float(np.abs(over - single).max()), 2e-3 * scale, request_s=MODES_REQUEST_S,
           replicas=DP_REPLICAS, max_abs_ref=scale)
-    walls = {"one": [], "replicas": []}
-    for _ in range(5):
-        for kind, extra in (("one", {}), ("replicas", {"mesh": two})):
-            t0 = time.perf_counter()
-            api.upsample(request, 16000, model, **kw, **extra)
-            walls[kind].append((time.perf_counter() - t0) * 1e3)
-    emit({"timing": {"name": "dp_replicas_upsample", "card": smi,
-                     "request_s": MODES_REQUEST_S, "replicas": DP_REPLICAS,
-                     **{f"{k}_ms": statistics.median(v) for k, v in walls.items()},
-                     "note": "upsample(mesh=) copies the generator to each replica per call"}})
     del model
 
     # 12d. two ids on a host of one card: both CLIs refuse before any work
@@ -1950,7 +1634,7 @@ def parallel_phase(smi: str, dev: torch.device, bare_step: dict, cli_step: dict)
     return paths
 
 
-def dense_phase(rng, smi: str, dev: torch.device) -> dict:
+def dense_phase(rng, dev: torch.device) -> dict:
     """Phase 13: the flagship (full width and depth) at n_fft 960, hop 480,
     win 960, segment 127 * 480, where K1 and K2 run their dense forms.  (a)
     three ``api.upsample`` requests in float32 and in bf16, each batch
@@ -1991,18 +1675,6 @@ def dense_phase(rng, smi: str, dev: torch.device) -> dict:
         served[path] = [api.upsample(a, 16000, model, is_lr_input=True, gen_overlap=512,
                                      batch_size=MAIN_BATCH) for a in requests]
         out[path] = dict(K.LAUNCHES)
-        # the longest request's wall time, as phase 7 times serving: a
-        # warm-up, then the median of DENSE_TIMED_REQUESTS
-        walls = []
-        for _ in range(DENSE_TIMED_REQUESTS + 1):
-            t0 = time.perf_counter()
-            api.upsample(requests[-1], 16000, model, is_lr_input=True, gen_overlap=512,
-                         batch_size=MAIN_BATCH)
-            walls.append((time.perf_counter() - t0) * 1e3)
-        wall = statistics.median(walls[1:])
-        emit({"timing": {"name": "upsample_end_to_end", "path": path, "card": smi,
-                         "n_fft": opt["n_fft"], "request_s": len(requests[-1]) / 16000,
-                         "ms": wall, "ms_per_audio_s": wall / (len(requests[-1]) / 16000)}})
         del model
         expected = {name: 0 for name in K.LAUNCHES}
         expected["mdct_spectro_dense"] = expected["imdct_audio_dense"] = batches
@@ -2065,22 +1737,21 @@ def dense_phase(rng, smi: str, dev: torch.device) -> dict:
         raise AssertionError(f"13b: a network did not move: {moved}")
     if out["n960_train_fp16"] != expected:
         raise AssertionError(f"13b launches {out['n960_train_fp16']}, expected {expected}")
-    emit({"phase": 13, "phase_s": time.perf_counter() - t_phase, "card": smi})
+    emit({"phase": 13, "phase_s": time.perf_counter() - t_phase})
     return out
 
 
-def export_phase(rng, smi: str, dev: torch.device) -> dict:
+def export_phase(rng, dev: torch.device) -> dict:
     """Phase 14: the serving export (``export_cli``) of the flagship at full
     width and depth.  (a) a reference-layout ``.pth`` of seeded weights,
-    exported on the card at batch 8 in float32 and ``--fp16`` (seconds,
-    bytes); a fresh process importing only torch and the op module
+    exported on the card at batch 8 in float32 and ``--fp16`` (bytes); a
+    fresh process importing only torch and the op module
     (``SERVE_CHILD``) serves phase 6's three requests' segments through
     each program, one FFT-form K1 and K2 a call, the dense forms never; its
     SR against ``model.inference`` on the card (phase 6's bound; the
     difference read); the float32 program against the port on the CPU at
     phase 6's bound, and called with TF32 allowed and unscoped (it must
-    move; its distance from the CPU read); the program's call against ``model.inference``, alternated, by CUDA
-    events; (b) the n_fft-480 program at a reduced depth: the dense K1 and
+    move; its distance from the CPU read); (b) the n_fft-480 program at a reduced depth: the dense K1 and
     K2 once each a call, through the operators; (c) a batch-8 program
     called at batch 4 raises; (d) the f32 program with the head damped
     100x, scoped, within ``TF32_CONTROL_REL`` of the CPU, which TF32
@@ -2119,8 +1790,8 @@ def export_phase(rng, smi: str, dev: torch.device) -> dict:
 
         def export(flags, label):
             written = export_cli.main(flags + ["--export_path", str(tmp / f"{label}.pt2")])
-            emit({"phase": 14, "export": label, "export_s": written["export_s"],
-                  "bytes": written["bytes"], "device": written["device"], "card": smi})
+            emit({"phase": 14, "export": label, "bytes": written["bytes"],
+                  "device": written["device"]})
             return written["path"]
 
         # 14a. the flagship in float32 and bf16 ----------------------------------
@@ -2146,7 +1817,6 @@ def export_phase(rng, smi: str, dev: torch.device) -> dict:
             its report."""
             jobs = [[label, path, src, str(tmp / f"sr_{label}.npy"), device]
                     for label, path, src, device in jobs]
-            t0 = time.perf_counter()
             proc = subprocess.run([sys.executable, "-c", SERVE_CHILD, json.dumps(jobs)],
                                   cwd=ROOT, capture_output=True, text=True, timeout=600,
                                   env=env)
@@ -2154,8 +1824,7 @@ def export_phase(rng, smi: str, dev: torch.device) -> dict:
                 raise AssertionError(f"{part}: the serving process failed:\n"
                                      f"{proc.stderr[-4000:]}")
             child = json.loads(proc.stdout.strip().splitlines()[-1])
-            emit({"phase": 14, "part": part, "serving_process": child, "card": smi,
-                  "process_s": time.perf_counter() - t0})
+            emit({"phase": 14, "part": part, "serving_process": child})
             return child
 
         child = serving_process("14a", [[label, path, str(tmp / "lr.npy"), None]
@@ -2245,21 +1914,6 @@ def export_phase(rng, smi: str, dev: torch.device) -> dict:
                     else:
                         raise AssertionError(f"14c: a batch-{EXPORT_BATCH} program served "
                                              f"batch {bad.shape[0]}")
-            times = {"program": [], "model": []}
-            calls = {"program": lambda: serve(x), "model": lambda: model.inference(x)}
-            for i in range(3 + EXPORT_TIMED):
-                for name in (("program", "model") if i % 2 else ("model", "program")):
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    calls[name]()
-                    end.record()
-                    end.synchronize()
-                    if i >= 3:
-                        times[name].append(start.elapsed_time(end))
-            emit({"timing": {"name": "exported_program_call", "precision": label, "card": smi,
-                             "batch": EXPORT_BATCH, "ms": statistics.median(times["program"]),
-                             "model_inference_ms": statistics.median(times["model"])}})
             del model, serve, program
 
         # 14b. n_fft 480 (the dense forms) at a reduced depth -------------------------
@@ -2283,15 +1937,15 @@ def export_phase(rng, smi: str, dev: torch.device) -> dict:
 
         # 14e. one program for the card and the CPU (--export_platforms tpu,cpu)
         out["export_serving_multi"] = multi_platform_export(
-            smi, tmp, export(f32_flags + common + ["--export_platforms", "tpu,cpu"],
+            tmp, export(f32_flags + common + ["--export_platforms", "tpu,cpu"],
                              "flagship_f32_multi"),
             programs["f32"], batches, refs["f32"],
             api.create_model(opt, "cpu", state_dict=state), serving_process)
-    emit({"phase": 14, "phase_s": time.perf_counter() - t_phase, "card": smi})
+    emit({"phase": 14, "phase_s": time.perf_counter() - t_phase})
     return out
 
 
-def multi_platform_export(smi: str, tmp: Path, path: str, single: str, batches: np.ndarray,
+def multi_platform_export(tmp: Path, path: str, single: str, batches: np.ndarray,
                           card_ref: np.ndarray, cpu_model, serving_process) -> dict:
     """Phase 14e: the flagship f32 program exported on the card for
     ``tpu,cpu`` (``path``; ``single`` is the same weights for ``tpu``).
@@ -2313,7 +1967,7 @@ def multi_platform_export(smi: str, tmp: Path, path: str, single: str, batches: 
              if "cuda" in str((n.args, n.kwargs, getattr(n.meta.get("val"), "device", "")))]
     sizes = {"multi": Path(path).stat().st_size, "single": Path(single).stat().st_size}
     emit({"phase": "14e", "bytes": sizes, "state_devices": held, "nodes": len(program.graph.nodes),
-          "nodes_naming_cuda": named[:10], "card": smi})
+          "nodes_naming_cuda": named[:10]})
     if held != ["cpu"] or named:
         raise AssertionError(f"14e (v): the tpu,cpu program holds its state on {held} and "
                              f"{len(named)} nodes name the card")
@@ -2332,7 +1986,7 @@ def multi_platform_export(smi: str, tmp: Path, path: str, single: str, batches: 
     diff = float(np.abs(np.load(tmp / "sr_multi.npy") - card_ref).max())
     check("14e (i): the tpu,cpu program in a fresh process on the card vs model.inference",
           diff, 2e-3 * float(np.abs(card_ref).max()), bit_for_bit=diff == 0.0,
-          batches=len(batches), load_ms=child["multi"]["load_ms"])
+          batches=len(batches))
 
     # (ii)-(iii) a process that sees no card
     np.save(tmp / "lr_cpu.npy", batches[:1])
@@ -2345,7 +1999,7 @@ def multi_platform_export(smi: str, tmp: Path, path: str, single: str, batches: 
     diff = float(np.abs(np.load(tmp / "sr_multi_cpu.npy")[0] - ref).max())
     check("14e (ii): the tpu,cpu program on the CPU, in a process without a card, vs the "
           "port's model.inference on the CPU", diff, 2e-3 * float(np.abs(ref).max()),
-          bit_for_bit=diff == 0.0, load_ms=child["multi_cpu"]["load_ms"])
+          bit_for_bit=diff == 0.0)
     raised = child["multi_cpu"]["default_device_raised"]
     emit({"phase": "14e", "part": "(iii)", "default_device_raised": raised})
     if not raised:
@@ -2354,7 +2008,7 @@ def multi_platform_export(smi: str, tmp: Path, path: str, single: str, batches: 
     return launches
 
 
-def tools_phase(rng, smi: str, dev: torch.device) -> dict:
+def tools_phase(rng, dev: torch.device) -> dict:
     """Phase 15: the port's counterparts of the JAX tools beside its package.
     (a) ``verify_import_cli`` on a reference-layout ``.pth`` of seeded
     flagship weights (the head damped 100x, as phase 9.1's): with
@@ -2390,7 +2044,6 @@ def tools_phase(rng, smi: str, dev: torch.device) -> dict:
         state[HEAD] *= 0.01
         pth = tmp / "latest_net_G.pth"
         torch.save(export_to_torch_keys(state, generator_entries_for(gen)), pth)
-        t0 = time.perf_counter()
         printed = io.StringIO()
         K.reset_launch_counts()
         with contextlib.redirect_stdout(printed):
@@ -2398,8 +2051,7 @@ def tools_phase(rng, smi: str, dev: torch.device) -> dict:
                 [str(pth), "--forward", "--gpu_ids", str(dev.index or 0)] + flags)
         out["verify_import_forward"] = dict(K.LAUNCHES)
         report = printed.getvalue().split("-------------- End ----------------\n")[-1]
-        emit({"phase": 15, "verify_import": report.splitlines(), "ok": found.ok,
-              "verify_s": time.perf_counter() - t0})
+        emit({"phase": 15, "verify_import": report.splitlines(), "ok": found.ok})
         if not found.ok or "strict load: OK" not in report or "forward OK" not in report:
             raise AssertionError(f"15a: the verifier did not report a strict OK:\n{report}")
         model = api.create_model(opt, dev, state_dict=state)
@@ -2446,14 +2098,12 @@ def tools_phase(rng, smi: str, dev: torch.device) -> dict:
     del model, fn
 
     # 15c. the data-parallel dry run: two gloo ranks sharing the card ---------
-    t0 = time.perf_counter()
     K.reset_launch_counts()
     metrics, rank_launches = dryrun.dryrun_multichip(2, device=dev, backend="gloo")
     reference = dict(K.LAUNCHES)  # the one-process steps the ranks are held to
     out["dryrun_ranks"] = {name: sum(r[name] for r in rank_launches) for name in K.LAUNCHES}
     emit({"phase": 15, "dryrun_multichip": metrics, "ranks": 2, "backend": "gloo",
-          "dryrun_s": time.perf_counter() - t0, "rank_launches": rank_launches,
-          "reference_launches": reference})
+          "rank_launches": rank_launches, "reference_launches": reference})
     # K1 twice a step, an Adam and an SGD(1) step: in each of the two ranks,
     # and in the one process that holds them
     for label, got, steps in (("the ranks", out["dryrun_ranks"], 2 * 2),
@@ -2462,7 +2112,7 @@ def tools_phase(rng, smi: str, dev: torch.device) -> dict:
         expected["mdct_spectro"] = 2 * steps
         if got != expected:
             raise AssertionError(f"15c: {label} launched {got}, expected {expected}")
-    emit({"phase": 15, "phase_s": time.perf_counter() - t_phase, "card": smi})
+    emit({"phase": 15, "phase_s": time.perf_counter() - t_phase})
     return out
 
 
@@ -2669,6 +2319,7 @@ def drive() -> int:
     from mdctgan_tpu_torch.ops import _build
     from mdctgan_tpu_torch.ops import mdct_kernels as K
     from mdctgan_tpu_torch.weights import random_jax_trees, state_dict_from_jax
+    from perfbench import roofline
 
     # 1. the card ----------------------------------------------------------
     smi = subprocess.run(
@@ -2679,7 +2330,7 @@ def drive() -> int:
     kind = torch.cuda.get_device_name(0)
     emit({"torch": torch.__version__, "cuda": torch.version.cuda, "device": kind,
           "count": torch.cuda.device_count()})
-    flops_peak, bytes_peak, tf32_peak = PEAKS["pcie" if "pcie" in kind.lower() else "sxm"]
+    peaks = roofline.peaks_for(kind) or roofline.PEAKS["sxm"]
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
 
@@ -2705,9 +2356,6 @@ def drive() -> int:
     for n, t, frames in DENSE_CHECKS + ((top, 8 * (top // 2), 8),):  # the dense form
         check_transforms(n, DENSE_BATCHES, (t,), frames)
     above_launches = above_dense_range(top, dev)
-    n_fft, k_bins = 512, 256
-    mat = K.spectro_matrix(n_fft, dev)
-    syn = K.synth_matrix(n_fft, dev)
 
     # 5. flagship generator: card against CPU ------------------------------
     # On the logits before the tanh: with these weights most of them lie
@@ -2804,11 +2452,12 @@ def drive() -> int:
     emit({"reading": "upsample bf16 vs float32 on the card (random weights, undamped head)",
           "max_abs_diff": [float(np.abs(o - r).max()) for o, r in zip(outs16, outs)],
           "max_abs_f32": [float(np.abs(r).max()) for r in outs]})
+    del model16
 
-    # 7. timings -------------------------------------------------------------
+    # 7. the kernel table ------------------------------------------------------
     def bound_ms(flops: float, nbytes: float):
-        t_ops, t_bytes = flops / flops_peak * 1e3, nbytes / bytes_peak * 1e3
-        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+        s, by = roofline.bound_s(flops, nbytes, peaks)
+        return s * 1e3, by
 
     rows = {}
 
@@ -2827,10 +2476,10 @@ def drive() -> int:
             # the least work of the function, whatever computes it: each frame
             # by the FFT, each input read once and each output written once
             # (the window of N floats is the only table the function needs)
-            k1 = bound_ms(b * f * (mdct_frame_ops(n) + AFFINE_OPS * k),
+            k1 = bound_ms(b * f * (roofline.mdct_frame_ops(n) + roofline.AFFINE_OPS * k),
                           4.0 * (b * t + n + b * f * k))
-            k2 = bound_ms(b * f * (AFFINE_OPS * k + mdct_frame_ops(n)) + b * (f - 1) * k,
-                          4.0 * (b * f * k + n + b * (f - 1) * k))
+            k2 = bound_ms(b * f * (roofline.AFFINE_OPS * k + roofline.mdct_frame_ops(n))
+                          + b * (f - 1) * k, 4.0 * (b * f * k + n + b * (f - 1) * k))
             # the dense form's own product, 3xTF32: three TF32 products of
             # 2 * rows * N * N/2 operations at the dense TF32 rate
             dense = {"mdct_spectro": 3 * 2.0 * b * f * n * k,
@@ -2848,7 +2497,7 @@ def drive() -> int:
                 shared = {"plain_ms": time_ms(plain), "plain_eager_ms": eager_ms(plain),
                           "library_ms": time_ms(lib), "library_eager_ms": eager_ms(lib),
                           "bound_ms": bound[0], "bound_by": bound[1],
-                          "dense_bound_ms": dense[name] / tf32_peak * 1e3}
+                          "dense_bound_ms": dense[name] / peaks["tf32"] * 1e3}
                 for form in forms:
                     kname, fn = name if form == "fft" else f"{name}_dense", fns[form]
                     ms = time_ms(fn)
@@ -2867,56 +2516,31 @@ def drive() -> int:
     emit({"timing": {"name": "graph_launch_floor", "ms": time_ms(lambda: tiny.add_(1.0)),
                      "eager_ms": eager_ms(lambda: tiny.add_(1.0))}})
 
-    x = torch.from_numpy(np.tile(lr_clip, (4, 1))).to(dev)
-    audio = requests[2]
-    for precision, m in (("f32", model), ("bf16", model16)):
-        with torch.inference_mode():
-            lr_spec, _, _ = m.transform.to_spectro(x)
-            g_in = m.transform.g_input(lr_spec)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            gen_ms = time_ms(lambda: m.generator(g_in), runs=20, inner=1)
-        emit({"timing": {"name": "generator_forward", "precision": precision, "card": smi,
-                         "batch": MAIN_BATCH, "ms": gen_ms, "ms_per_segment": gen_ms / MAIN_BATCH,
-                         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}})
-        api.upsample(audio, 16000, m, is_lr_input=True, gen_overlap=512)
-        walls = []
-        for _ in range(20):
-            t0 = time.perf_counter()
-            api.upsample(audio, 16000, m, is_lr_input=True, gen_overlap=512,
-                         batch_size=MAIN_BATCH)
-            walls.append((time.perf_counter() - t0) * 1e3)
-        wall = statistics.median(walls)
-        emit({"timing": {"name": "upsample_end_to_end", "precision": precision, "card": smi,
-                         "request_s": len(audio) / 16000, "ms": wall,
-                         "ms_per_audio_s": wall / (len(audio) / 16000)}})
-    del model16
-
     # 8. training ------------------------------------------------------------
-    train_launches, step_timing, train16_launches, step16_timing = train_phase(rng, smi, dev)
+    train_launches, train16_launches = train_phase(rng, dev)
 
     # 9. the generate entry point ----------------------------------------------
-    generate_launches = generate_phase(rng, smi, dev)
+    generate_launches = generate_phase(rng, dev)
 
     # 10. the train entry point --------------------------------------------------
-    train_cli_launches, cli_step = train_cli_phase(smi, dev, step16_timing)
+    train_cli_launches = train_cli_phase(dev)
 
     # 11. the spectral modes and generator layouts beside the flagship's ---------
-    modes_launches = modes_phase(rng, smi, dev, step16_timing)
+    modes_launches = modes_phase(rng, dev)
 
     # 12. data parallelism on the one card --------------------------------------
     del model, state, cpu_gen
     torch.cuda.empty_cache()
-    parallel_launches = parallel_phase(smi, dev, step16_timing, cli_step)
+    parallel_launches = parallel_phase(dev)
 
     # 13. the flagship at n_fft 960: the dense forms' path ------------------------
-    dense_launches = dense_phase(rng, smi, dev)
+    dense_launches = dense_phase(rng, dev)
 
     # 14. the serving export ----------------------------------------------------
-    export_launches = export_phase(rng, smi, dev)
+    export_launches = export_phase(rng, dev)
 
     # 15. the checkpoint verifier and the dry-run entry points --------------------
-    tools_launches = tools_phase(rng, smi, dev)
+    tools_launches = tools_phase(rng, dev)
 
     replaces = {
         "mdct_spectro": "mdctgan_tpu/ops/pallas_mdct.py:80",

@@ -9,12 +9,11 @@ of its own (the trees share the package's name):
 
   * the eager time of one call of each FFT-form wrapper
     (``mdct_kernels.mdct_spectro``, ``imdct_audio``) at n_fft 512 and batch
-    8: the mean of 10 back-to-back calls by CUDA events, the median of 25
-    after 3 warm-ups, as ``chip_smoke.py`` phase 7's ``eager_ms``;
+    8, by ``chip_smoke.py`` phase 7's ``eager_ms`` (the mean of 10
+    back-to-back calls by CUDA events, the median of 25 after 3 warm-ups);
   * ``api.upsample`` of a 3.7 s request of synthetic speech at 16 kHz
     through the flagship (``configs.flagship_opt()``, seeded weights), batch
-    8, in float32 and in bf16: host clock, a warm-up then the median of 20,
-    as phase 7 times it.
+    8, in float32 and in bf16: host clock, a warm-up then the median of 20.
 
 Give two trees as ``A B B A`` so that each is measured early and late in
 the call.  One JSON line per tree and run, times in ms, with the card's
@@ -33,10 +32,14 @@ from pathlib import Path
 
 REQUEST_S = 3.7
 RUNS = 20
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def measure(root: Path) -> dict:
     """This process's numbers for the tree at ``root``."""
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import eager_ms  # phase 7's timer, from this checkout
+
     sys.path.insert(0, str(root))
     import numpy as np
     import torch
@@ -62,19 +65,7 @@ def measure(root: Path) -> dict:
         mat, syn = K.spectro_matrix(512, dev), K.synth_matrix(512, dev)
         for name, fn in (("mdct_spectro", lambda: K.mdct_spectro(x, mat, 1000.0, 0.2, 0.0)),
                          ("imdct_audio", lambda: K.imdct_audio(y, syn, 1000.0, 5.0, 0.0))):
-            for _ in range(3):
-                fn()
-            times = []
-            for _ in range(25):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(10):
-                    fn()
-                end.record()
-                end.synchronize()
-                times.append(start.elapsed_time(end) / 10)
-            out[f"{name}_eager_ms"] = statistics.median(times)
+            out[f"{name}_eager_ms"] = eager_ms(fn)
 
         opt = flagship_opt()
         state = state_dict_from_jax(*random_jax_trees(build_generator(opt), rng))
